@@ -1,0 +1,9 @@
+# The port's kernels: hand-written CUDA C++ for sm_90a under ../csrc, built
+# and bound by native.py, each with its plain PyTorch version beside it.
+#   integral_image  - kernel S, the SAT phase (three padded SATs)
+#   fused_head      - kernel A, the fused dense head's tile pass
+#   haar_stage      - kernel B, one stage's dense sums (split head)
+#   packed_window   - kernel C, stage-run sums over a packed window list
+# ops.py = the public wrappers (+ *_ref twins over ref.py); packed_tail.py
+# = the compacted-tail evaluator (gather / bulk / pallas backends).
+from . import ops, packed_tail, ref  # noqa: F401

@@ -1,0 +1,141 @@
+"""Public wrappers over the port's kernels, at natural shapes.
+
+Each wrapper takes CUDA tensors to its hand-written kernel and CPU tensors
+to that kernel's plain PyTorch version; any other device raises.  Callers
+never see padding or launch shapes.  Every public wrapper has a ``*_ref``
+twin over :mod:`repro_torch.kernels.ref` (the reference oracles' plain
+twins), which agrees with it bit for bit where the arithmetic is the same
+(the packed tail) and to the reference's tolerances where it is not (the
+dense heads combine corners as ``(d - b) - (c - a)``).
+
+Kernels and what they port:
+
+- S  ``sat_tables``                 <- ``integral_image_kernel`` + the SAT
+                                        build of ``_fused_kernel``
+- A  ``fused_head(_batch)``          <- ``fused_head_kernel`` (S, then A)
+- B  ``dense_stage_sums(_batch)``    <- ``haar_stage_sums_kernel``
+- C  ``packed_stage_sums``           <- ``packed_stage_sums_kernel``
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.cascade import Cascade
+from repro_torch.core.integral import CENTRE
+
+from . import fused_head as _fused
+from . import haar_stage as _haar
+from . import packed_window as _packed
+from . import ref
+from .integral_image import sat_tables
+from .native import launches, reset_launches
+
+__all__ = ["sat_tables", "sat_tables_ref",
+           "fused_head", "fused_head_ref",
+           "fused_head_batch", "fused_head_batch_ref",
+           "dense_stage_sums", "dense_stage_sums_ref",
+           "dense_stage_sums_batch", "dense_stage_sums_batch_ref",
+           "packed_stage_sums", "packed_stage_sums_ref",
+           "launches", "reset_launches"]
+
+
+def _run_params(cascade: Cascade, s0: int, s1: int):
+    """The weak-classifier arrays of stages ``[s0, s1)`` and their stage
+    boundaries relative to the run's first classifier."""
+    b = cascade.bounds
+    k0, k1 = b[s0], b[s1]
+    rel = tuple(v - k0 for v in b[s0:s1 + 1])
+    arrays = (cascade.rect_xywh[k0:k1], cascade.rect_w[k0:k1],
+              cascade.wc_threshold[k0:k1], cascade.left_val[k0:k1],
+              cascade.right_val[k0:k1])
+    return arrays, rel
+
+
+# ------------------------------------------------------------------ SAT (S)
+def sat_tables_ref(imgs: torch.Tensor):
+    """Oracle twin of :func:`sat_tables`."""
+    img = imgs.to(torch.float32)
+    centred = img - CENTRE
+    return tuple(F.pad(ref.integral_image_ref(t), (1, 0, 1, 0))
+                 for t in (img, centred * centred, centred))
+
+
+# ---------------------------------------------------------------- fused (A)
+def fused_head_batch(cascade: Cascade, s0: int, s1: int,
+                     imgs: torch.Tensor):
+    """Fused dense head for stages ``[s0, s1)`` over a (B, H, W) stack:
+    ``(ii (B, H+1, W+1), inv (B, ny, nx), sums (B, s1-s0, ny, nx))``.
+    Kernel S builds the SATs, kernel A does the tile pass."""
+    ii, ii2, iic = sat_tables(imgs)
+    inv, sums = _fused.tile_pass(cascade, s0, s1, ii, ii2, iic)
+    return ii, inv, sums
+
+
+def fused_head(cascade: Cascade, s0: int, s1: int, img: torch.Tensor):
+    """:func:`fused_head_batch` of one (H, W) image."""
+    ii, inv, sums = fused_head_batch(cascade, s0, s1, img[None])
+    return ii[0], inv[0], sums[0]
+
+
+def fused_head_batch_ref(cascade: Cascade, s0: int, s1: int,
+                         imgs: torch.Tensor):
+    """Oracle twin of :func:`fused_head_batch`."""
+    arrays, rel = _run_params(cascade, s0, s1)
+    return ref.fused_head_batch_ref(*arrays, rel, imgs)
+
+
+def fused_head_ref(cascade: Cascade, s0: int, s1: int, img: torch.Tensor):
+    """Oracle twin of :func:`fused_head`."""
+    arrays, rel = _run_params(cascade, s0, s1)
+    return ref.fused_head_ref(*arrays, rel, img)
+
+
+# ---------------------------------------------------------------- dense (B)
+def dense_stage_sums_batch(cascade: Cascade, s: int, ii: torch.Tensor,
+                           inv_sigma_grid: torch.Tensor) -> torch.Tensor:
+    """(B, ny, nx) stage-``s`` sums from (B, H+1, W+1) SATs and (B, ny, nx)
+    1/sigma grids."""
+    return _haar.stage_sums(cascade, s, ii, inv_sigma_grid)
+
+
+def dense_stage_sums(cascade: Cascade, s: int, ii: torch.Tensor,
+                     inv_sigma_grid: torch.Tensor) -> torch.Tensor:
+    """:func:`dense_stage_sums_batch` of one (H+1, W+1) SAT."""
+    return _haar.stage_sums(cascade, s, ii[None], inv_sigma_grid[None])[0]
+
+
+def dense_stage_sums_ref(cascade: Cascade, s: int, ii: torch.Tensor,
+                         inv_sigma_grid: torch.Tensor) -> torch.Tensor:
+    """Oracle twin of :func:`dense_stage_sums`."""
+    arrays, _rel = _run_params(cascade, s, s + 1)
+    return ref.dense_stage_sums_ref(*arrays, ii, inv_sigma_grid)
+
+
+dense_stage_sums_batch_ref = dense_stage_sums_ref
+
+
+# --------------------------------------------------------------- packed (C)
+def packed_stage_sums(cascade: Cascade, s0: int, s1: int,
+                      ii_flat: torch.Tensor, img: torch.Tensor,
+                      base: torch.Tensor, stride: torch.Tensor,
+                      ys: torch.Tensor, xs: torch.Tensor,
+                      inv_sigma: torch.Tensor) -> torch.Tensor:
+    """(s1 - s0, cap) stage sums over a packed window list (int32 lanes)."""
+    return _packed.stage_sums(cascade, s0, s1, ii_flat, img, base, stride,
+                              ys, xs, inv_sigma)
+
+
+def packed_stage_sums_ref(cascade: Cascade, s0: int, s1: int,
+                          ii_flat: torch.Tensor, img: torch.Tensor,
+                          base: torch.Tensor, stride: torch.Tensor,
+                          ys: torch.Tensor, xs: torch.Tensor,
+                          inv_sigma: torch.Tensor) -> torch.Tensor:
+    """Oracle twin of :func:`packed_stage_sums`."""
+    b = cascade.bounds
+    rel = tuple(v - b[s0] for v in b[s0:s1 + 1])
+    return ref.packed_stage_sums_ref(
+        cascade.rect_xywh, cascade.rect_w, cascade.wc_threshold,
+        cascade.left_val, cascade.right_val, b[s0], rel, ii_flat, img, base,
+        stride, ys, xs, inv_sigma)

@@ -1,0 +1,115 @@
+"""Plain-torch twins of the reference's oracles (``repro.kernels.ref``).
+
+These follow the reference oracles' arithmetic, not the kernels': corners
+``d - b - c + a`` and ``feat * inv_sigma / 576`` throughout, the
+weak-classifier parameters read as tensors.  Given the same SAT and
+1/sigma they give the reference oracles' bits; against the dense kernels
+(whose stage sums use ``(d - b) - (c - a)`` and ``* (1/576)``) they agree
+to the reference's tolerances.  The tile-change oracles come with the
+streaming slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.cascade import WINDOW
+from repro_torch.core.integral import CENTRE, div_rn, inv_sigma_of, rect_sum
+
+__all__ = ["integral_image_ref", "window_inv_sigma_ref",
+           "dense_stage_sums_ref", "fused_head_ref", "fused_head_batch_ref",
+           "packed_stage_sums_ref", "dense_stage_sums_batch_ref"]
+
+_AREA = float(WINDOW * WINDOW)
+
+
+def integral_image_ref(img: torch.Tensor) -> torch.Tensor:
+    """Inclusive 2-D cumulative sum (unpadded), the port's pinned order."""
+    cols = torch.cumsum(img.to(torch.float32).double(), dim=-2).float()
+    return torch.cumsum(cols.double(), dim=-1).float()
+
+
+def window_inv_sigma_ref(ii2: torch.Tensor, iic: torch.Tensor, ny: int,
+                         nx: int, window: int = WINDOW) -> torch.Tensor:
+    """(..., ny, nx) grid of 1/sigma per stride-1 window origin."""
+    n = float(window * window)
+    ys = torch.arange(ny, device=ii2.device)[:, None]
+    xs = torch.arange(nx, device=ii2.device)[None, :]
+    s2 = rect_sum(ii2, ys, xs, window, window)
+    mean = div_rn(rect_sum(iic, ys, xs, window, window), n)
+    return inv_sigma_of(div_rn(s2, n) - mean * mean)
+
+
+def dense_stage_sums_ref(rect_xywh, rect_w, wc_threshold, left_val,
+                         right_val, ii: torch.Tensor,
+                         inv_sigma: torch.Tensor) -> torch.Tensor:
+    """Stage sums over a dense stride-1 grid of the given weak classifiers;
+    ``ii`` (..., H+1, W+1) and ``inv_sigma`` (..., ny, nx)."""
+    ny, nx = inv_sigma.shape[-2:]
+    ys = torch.arange(ny, device=ii.device)[:, None]
+    xs = torch.arange(nx, device=ii.device)[None, :]
+    acc = torch.zeros_like(inv_sigma)
+    for k in range(rect_xywh.shape[0]):
+        feat = torch.zeros_like(inv_sigma)
+        for r in range(rect_xywh.shape[1]):
+            rx, ry, rw, rh = rect_xywh[k, r]
+            feat = feat + rect_w[k, r] * rect_sum(ii, ys + ry, xs + rx, rh, rw)
+        f_norm = div_rn(feat * inv_sigma, _AREA)
+        acc = acc + torch.where(f_norm < wc_threshold[k], left_val[k],
+                                right_val[k])
+    return acc
+
+
+def fused_head_ref(rect_xywh, rect_w, wc_threshold, left_val, right_val,
+                   rel_bounds: tuple, img: torch.Tensor):
+    """Oracle twin of the fused head: ``(ii, inv_sigma, sums)`` composed
+    from this module's pieces; works on (H, W) or (B, H, W)."""
+    img = img.to(torch.float32)
+    h, w = img.shape[-2:]
+    ny, nx = h - WINDOW + 1, w - WINDOW + 1
+    ii = F.pad(integral_image_ref(img), (1, 0, 1, 0))
+    centred = img - CENTRE
+    ii2 = F.pad(integral_image_ref(centred * centred), (1, 0, 1, 0))
+    iic = F.pad(integral_image_ref(centred), (1, 0, 1, 0))
+    inv = window_inv_sigma_ref(ii2, iic, ny, nx)
+    sums = torch.stack([
+        dense_stage_sums_ref(rect_xywh[a:b], rect_w[a:b], wc_threshold[a:b],
+                             left_val[a:b], right_val[a:b], ii, inv)
+        for a, b in zip(rel_bounds[:-1], rel_bounds[1:])], dim=-3)
+    return ii, inv, sums
+
+
+fused_head_batch_ref = fused_head_ref
+dense_stage_sums_batch_ref = dense_stage_sums_ref
+
+
+def packed_stage_sums_ref(rect_xywh, rect_w, wc_threshold, left_val,
+                          right_val, k0: int, rel_bounds: tuple,
+                          ii_flat: torch.Tensor, img, base, stride, ys, xs,
+                          inv_sigma: torch.Tensor) -> torch.Tensor:
+    """(n_run, cap) stage sums over a packed window list: the gather
+    oracle of the packed kernel (2-D ``ii_flat[img, flat]`` lookups)."""
+    img, base, stride = img.long(), base.long(), stride.long()
+
+    def rect(y0, x0, rh, rw):
+        y1, x1 = y0 + rh, x0 + rw
+        return (ii_flat[img, base + y1 * stride + x1]
+                - ii_flat[img, base + y0 * stride + x1]
+                - ii_flat[img, base + y1 * stride + x0]
+                + ii_flat[img, base + y0 * stride + x0])
+
+    rows = []
+    for si in range(len(rel_bounds) - 1):
+        acc = torch.zeros_like(inv_sigma)
+        for k in range(k0 + rel_bounds[si], k0 + rel_bounds[si + 1]):
+            feat = torch.zeros_like(inv_sigma)
+            for r in range(rect_xywh.shape[1]):
+                rx, ry, rw, rh = rect_xywh[k, r]
+                feat = feat + rect_w[k, r] * rect(ys.long() + ry,
+                                                  xs.long() + rx, rh, rw)
+            f_norm = div_rn(feat * inv_sigma, _AREA)
+            acc = acc + torch.where(f_norm < wc_threshold[k], left_val[k],
+                                    right_val[k])
+        rows.append(acc)
+    return torch.stack(rows)

@@ -75,3 +75,9 @@ try:
     import hypothesis  # noqa: F401
 except ImportError:
     _install_hypothesis_stub()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels have no CPU "
+        "mode); skips without one")

@@ -1,0 +1,76 @@
+"""The port's CUDA kernels on a card (``cuda`` marker): each kernel equal
+bit for bit to its plain version on the same inputs, and a small
+``detect_batch`` on the card equal to the port's CPU run, through every
+kernel.  Imports only torch, numpy and the port, so it runs where jax is
+not installed:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Without a card every test here skips (the kernels have no CPU mode).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade
+from repro_torch.core.training.data import render_scene
+from repro_torch.kernels import fused_head, haar_stage, integral_image, ops
+from repro_torch.kernels import packed_window
+
+SMALL = [3, 4, 5, 6, 8]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_equal_plain_versions_on_card(card):
+    casc = paper_shaped_cascade(0, stage_sizes=SMALL, device=card)
+    rng = np.random.default_rng(4)
+    imgs = torch.as_tensor(rng.integers(0, 256, (2, 70, 90)),
+                           dtype=torch.float32, device=card)
+    tables = integral_image.sat_tables(imgs)
+    for got, want in zip(tables, integral_image.sat_tables_plain(imgs.cpu())):
+        assert torch.equal(got.cpu(), want)
+    inv, sums = fused_head.tile_pass(casc, 0, 3, *tables)
+    p_inv, p_sums = fused_head.tile_pass_plain(casc, 0, 3, *tables)
+    assert torch.equal(inv, p_inv) and torch.equal(sums, p_sums)
+    b = casc.bounds
+    for s in range(len(SMALL)):
+        assert torch.equal(
+            haar_stage.stage_sums(casc, s, tables[0], inv),
+            haar_stage.dense_sums_plain(casc, b[s], b[s + 1], tables[0], inv))
+    ii_flat = tables[0].reshape(2, -1)
+    n = 5000
+    lanes = [torch.as_tensor(a, dtype=torch.int32, device=card) for a in (
+        rng.integers(0, 2, n), np.zeros(n), np.full(n, 91),
+        rng.integers(0, 47, n), rng.integers(0, 67, n))]
+    inv_l = inv.reshape(2, -1)[lanes[0].long(),
+                               lanes[3].long() * 67 + lanes[4].long()]
+    assert torch.equal(
+        packed_window.stage_sums(casc, 0, 5, ii_flat, *lanes, inv_l),
+        packed_window.stage_sums_plain(casc, 0, 5, ii_flat, *lanes, inv_l))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["fused", "split"])
+def test_detect_batch_on_card_equals_cpu(card, head):
+    casc = paper_shaped_cascade(0, stage_sizes=SMALL)
+    rng = np.random.default_rng(7)
+    imgs = [render_scene(rng, 64, 64, n_faces=1)[0] for _ in range(3)]
+    cfg = EngineConfig(mode="wave", step=1, min_neighbors=2, use_pallas=True,
+                       tail_backend="pallas", head_mode=head)
+    ops.reset_launches()
+    on_card = Detector(casc, cfg).detect_batch(imgs, group=False)
+    counts = ops.launches()
+    on_cpu = Detector(casc, cfg, device="cpu").detect_batch(imgs, group=False)
+    for a, c in zip(on_card, on_cpu):
+        assert np.array_equal(a, c)
+    dense = "fused_head" if head == "fused" else "haar_stage"
+    assert counts["integral_image"] > 0 and counts[dense] > 0
+    assert counts["packed_window"] > 0
