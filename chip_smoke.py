@@ -17,10 +17,16 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
 3. main path: ``Detector.detect_batch`` on the paper-shaped 25-stage /
    2913-weak-classifier cascade over eight seeded 480x640 scenes, with the
    fused head and with the split head (equal rects), ``detect`` equal to
-   the batch per image, every kernel's launch count above 0, no program
-   rebuilt on a repeat flush; then ms per flush and images per second;
+   the batch per image, no program rebuilt on a repeat flush; then ms per
+   flush and images per second;
 4. card vs CPU: the pretrained 3-stage cascade on seeded 240x320 face
    scenes gives the same rects on the card as the port's own CPU run.
+
+Every path driven on the card (the fused flush, the split flush, the two
+``detect`` calls and the card-vs-CPU flush) runs with the launch counts
+set to 0 just before it and read just after: each must have launched the
+kernels of its path (fused: S, A, C; split: S, B, C; ``detect``: S, A, C;
+card vs CPU: S, A) and not the other head's.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``; it exits non-zero, with
@@ -103,6 +109,21 @@ def scenes(render_scene, n: int, h: int, w: int, seed: int, **kw):
     return [render_scene(rng, h, w, **kw)[0] for _ in range(n)]
 
 
+def main_path_workload(device):
+    """The main path's workload: the paper-shaped cascade from ``SEED``,
+    ``BATCH`` seeded ``H`` x ``W`` face scenes and the engine config.
+    Needs ``src`` on ``sys.path``; ``scripts/port_profile.py`` measures
+    the same workload through this function."""
+    from repro_torch.core import EngineConfig, paper_shaped_cascade
+    from repro_torch.core.training.data import render_scene
+    cascade = paper_shaped_cascade(SEED, device=device)
+    imgs = scenes(render_scene, BATCH, H, W, SEED, n_faces=3)
+    cfg = EngineConfig(mode="wave", step=1, scale_factor=1.2,
+                       use_pallas=True, pad_multiple=32,
+                       tail_backend="pallas")
+    return cascade, imgs, cfg
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -115,7 +136,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.configs import viola_jones
-    from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade
+    from repro_torch.core import Detector
     from repro_torch.core.engine import nonzero_static
     from repro_torch.core.integral import window_inv_sigma
     from repro_torch.core.training.data import render_scene
@@ -140,8 +161,7 @@ def main() -> int:
     report["build_s"] = built["seconds"]
 
     dev = torch.device(DEVICE)
-    cascade = paper_shaped_cascade(SEED, device=dev)
-    imgs = scenes(render_scene, BATCH, H, W, SEED, n_faces=3)
+    cascade, imgs, cfg = main_path_workload(dev)
     stack = torch.from_numpy(np.stack(imgs)).to(dev)
     rows = []
 
@@ -150,6 +170,7 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{source}",
                      "replaces": replaces, "launches": 0,
+                     "launches_by_path": {},
                      "max_abs_err": float(err), "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
                      "_kernel": kernel})
@@ -197,7 +218,8 @@ def main() -> int:
     param_bytes = 72
     row("fused_head (A)", "fused_head", "fused_head.cu",
         "src/repro/kernels/fused_head.py:124",
-        (sums_a - sums_p).abs().max(),
+        max(float((inv_a - inv_p).abs().max()),
+            float((sums_a - sums_p).abs().max())),
         cuda_ms(torch, lambda: fused_head.tile_pass(cascade, 0, n_dense, ii,
                                                     ii2, iic), 10),
         cuda_ms(torch, lambda: fused_head.tile_pass_plain(
@@ -211,16 +233,18 @@ def main() -> int:
                              torch.arange(nx, device=dev)[None, :], 24)
     if diff(inv_b, inv_a):
         errors.append(f"split-head 1/sigma vs kernel A: {diff(inv_b, inv_a)}")
+    err_b = 0.0
     for s in range(n_dense):
         got = haar_stage.stage_sums(cascade, s, ii, inv_b)
         want = haar_stage.dense_sums_plain(cascade, kb[s], kb[s + 1], ii,
                                            inv_b)
         if diff(got, want):
             errors.append(f"kernel B stage {s}: {diff(got, want)}")
+        err_b = max(err_b, float((got - want).abs().max()))
     s_b = 2
     k_b = kb[s_b + 1] - kb[s_b]
     row("haar_stage (B)", "haar_stage", "haar_stage.cu",
-        "src/repro/kernels/haar_stage.py:71", 0.0,
+        "src/repro/kernels/haar_stage.py:71", err_b,
         cuda_ms(torch, lambda: haar_stage.stage_sums(cascade, s_b, ii,
                                                      inv_b), 10),
         cuda_ms(torch, lambda: haar_stage.dense_sums_plain(
@@ -229,9 +253,6 @@ def main() -> int:
          n_win * 20 * k_b))
 
     # C: the first tail segment's real packed list of the main-path flush
-    cfg = EngineConfig(mode="wave", step=1, scale_factor=1.2,
-                       use_pallas=True, pad_multiple=32,
-                       tail_backend="pallas")
     det = Detector(cascade, cfg, device=DEVICE)
     hp, wp = det._bucket_hw(H, W)
     plan = det.batch_plan(hp, wp, BATCH)
@@ -259,6 +280,7 @@ def main() -> int:
     torch.cuda.synchronize()
     if diff(got, want):
         errors.append(f"kernel C: {diff(got, want)}")
+    err_c = float((got - want).abs().max()) if got.numel() else 0.0
     if errors:
         return fail("; ".join(errors))
     cap = inv_c.numel()
@@ -267,7 +289,7 @@ def main() -> int:
     print(f"packed list: {cap} lanes, {n_valid} valid, stages "
           f"[{seg.s0}, {seg.s1}), {k_c} weak classifiers")
     row("packed_window (C)", "packed_window", "packed_window.cu",
-        "src/repro/kernels/packed_window.py:95", 0.0,
+        "src/repro/kernels/packed_window.py:95", err_c,
         cuda_ms(torch, lambda: packed_window.stage_sums(
             cascade, seg.s0, seg.s1, ii_flat, *lanes, inv_c), 5),
         cuda_ms(torch, lambda: packed_window.stage_sums_plain(
@@ -278,17 +300,37 @@ def main() -> int:
                              "stages": [seg.s0, seg.s1], "weak": k_c}
 
     # -------------------------------------------------------- 3. main path
+    by_path: dict = {}
+
+    def on_path(label, fn, need, never):
+        """Run ``fn`` with the launch counts set to 0 just before it; ''
+        when it launched every kernel of ``need`` and none of ``never``."""
+        ops.reset_launches()
+        out = fn()
+        counts = ops.launches()
+        by_path[label] = counts
+        print(f"{label} launches: {counts}")
+        missing = [k for k in need if counts[k] <= 0]
+        extra = [k for k in never if counts[k] != 0]
+        if missing or extra:
+            return out, (f"path {label}: not launched {missing}, launched "
+                         f"against its head {extra}")
+        return out, ""
+
     det_split = Detector(cascade, cfg._replace(head_mode="split"),
                          device=DEVICE)
-    ops.reset_launches()
-    fused_rects = det.detect_batch(imgs, group=False)
-    split_rects = det_split.detect_batch(imgs, group=False)
-    counts = ops.launches()
-    print(f"main path launches: {counts}")
-    for r in rows:
-        r["launches"] = counts[r.pop("_kernel")]
-        if r["launches"] <= 0:
-            return fail(f"{r['name']} was not launched on the main path")
+    head_s, head_a = "integral_image", "fused_head"
+    split_b, tail_c = "haar_stage", "packed_window"
+    fused_rects, err = on_path(
+        "fused", lambda: det.detect_batch(imgs, group=False),
+        (head_s, head_a, tail_c), (split_b,))
+    if err:
+        return fail(err)
+    split_rects, err = on_path(
+        "split", lambda: det_split.detect_batch(imgs, group=False),
+        (head_s, split_b, tail_c), (head_a,))
+    if err:
+        return fail(err)
     for i, (a, b) in enumerate(zip(fused_rects, split_rects)):
         if not np.array_equal(a, b):
             return fail(f"fused and split heads differ on image {i}")
@@ -296,9 +338,14 @@ def main() -> int:
     # random cascade, so the single-image run keeps every survivor
     det_one = Detector(cascade, cfg._replace(
         capacity_fracs=(1.0,) * len(plan.tail_segments)), device=DEVICE)
-    for i in range(2):
-        if not np.array_equal(det_one.detect(imgs[i], group=False),
-                              fused_rects[i]):
+    one_rects, err = on_path(
+        "detect", lambda: [det_one.detect(imgs[i], group=False)
+                           for i in range(2)],
+        (head_s, head_a, tail_c), (split_b,))
+    if err:
+        return fail(err)
+    for i, rects in enumerate(one_rects):
+        if not np.array_equal(rects, fused_rects[i]):
             return fail(f"detect != detect_batch on image {i}")
     n_raw = [len(r) for r in fused_rects]
     if not all(np.isfinite(r).all() and r.shape[1] == 4
@@ -332,7 +379,12 @@ def main() -> int:
     # ---------------------------------------------------- 4. card vs CPU
     pre, _meta = viola_jones.pretrained()
     faces = scenes(render_scene, 3, 240, 320, SEED + 1, n_faces=2)
-    on_card = Detector(pre, cfg, device=DEVICE).detect_batch(faces)
+    # the 3-stage cascade is all dense prefix: no tail, no kernel C
+    on_card, err = on_path(
+        "card_vs_cpu", lambda: Detector(pre, cfg, device=DEVICE).detect_batch(
+            faces), (head_s, head_a), (split_b,))
+    if err:
+        return fail(err)
     on_cpu = Detector(pre, cfg, device="cpu").detect_batch(faces)
     for i, (a, b) in enumerate(zip(on_card, on_cpu)):
         if not np.array_equal(a, b):
@@ -340,6 +392,12 @@ def main() -> int:
     print(f"card == CPU on {len(faces)} face scenes: "
           f"{[len(r) for r in on_card]} grouped rects")
 
+    # each kernel's launches are those of the first main-path flush that
+    # runs it: S, A and C on the fused flush, B on the split flush
+    for r in rows:
+        k = r.pop("_kernel")
+        r["launches"] = by_path["split" if k == split_b else "fused"][k]
+        r["launches_by_path"] = {p: c[k] for p, c in by_path.items()}
     report["kernels"] = rows
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -4,8 +4,9 @@
     python3 scripts/port_profile.py [--flushes 3] [--head fused|split]
 
 Builds the port's kernels, warms ``Detector.detect_batch`` (packed
-strategy, the paper-shaped 25-stage cascade, 8 seeded 480x640 scenes, the
-configuration of ``chip_smoke.py``), then traces ``--flushes`` flushes
+strategy) on the main path's workload as ``chip_smoke.main_path_workload``
+defines it (the paper-shaped 25-stage cascade, 8 seeded 480x640 scenes,
+the engine config), then traces ``--flushes`` flushes
 with ``torch.profiler`` and prints, per flush: the host wall time, the
 summed device time of every kernel and copy (from the trace), the device's
 idle share (1 - device time / wall time; device work does not overlap
@@ -32,28 +33,23 @@ def main() -> int:
     ap.add_argument("--head", choices=("fused", "split"), default="fused")
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)
-    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade
-    from repro_torch.core.training.data import render_scene
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    from chip_smoke import main_path_workload
+    from repro_torch.core import Detector
     from repro_torch.kernels import native
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     native.build_all()
-    rng = np.random.default_rng(0)
-    imgs = [render_scene(rng, 480, 640, n_faces=3)[0] for _ in range(8)]
-    cfg = EngineConfig(mode="wave", step=1, scale_factor=1.2,
-                       use_pallas=True, pad_multiple=32,
-                       tail_backend="pallas", head_mode=args.head)
-    det = Detector(paper_shaped_cascade(0), cfg)
+    cascade, imgs, cfg = main_path_workload("cuda")
+    det = Detector(cascade, cfg._replace(head_mode=args.head))
     for _ in range(2):
         det.detect_batch(imgs, group=False)
     torch.cuda.synchronize()

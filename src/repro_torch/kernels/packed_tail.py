@@ -8,7 +8,8 @@ bits (corners ``d - b - c + a``, ``feat * inv / 576``, votes in ascending
 k), as in ``repro.kernels.packed_tail``:
 
 ``gather``
-    one weak classifier at a time: the exactness referee (plain torch);
+    one weak classifier at a time: the exactness referee, kernel C's plain
+    version :func:`repro_torch.kernels.packed_window.stage_sums_plain`;
 ``bulk``
     one gather per rectangle corner across all ``K`` weak classifiers of a
     stage, shape (K, 3, cap) (plain torch);
@@ -18,8 +19,8 @@ k), as in ``repro.kernels.packed_tail``:
     per lane looping the whole stage run.  The label is the reference's,
     so configs and plans stay equal to its own.
 
-Out-of-range SAT indices clamp, as JAX's gathers do; valid lanes never
-produce one.  ``measure_rungs`` (the backend race) comes with the
+Out-of-range flat SAT indices clamp into the table, as
+``jnp.take(mode="clip")`` does; valid lanes never produce one.  ``measure_rungs`` (the backend race) comes with the
 calibration slice.
 """
 
@@ -39,39 +40,18 @@ BACKENDS = ("gather", "bulk", "pallas")
 
 def _lookup(ii_flat: torch.Tensor, img: torch.Tensor,
             flat: torch.Tensor) -> torch.Tensor:
-    """``ii_flat[img, flat]`` with each index clamped into range."""
-    b, n = ii_flat.shape
-    return ii_flat[torch.clamp(img, 0, b - 1), torch.clamp(flat, 0, n - 1)]
-
-
-def _gather_stage_sum(cascade: Cascade, ii_flat, img, base, stride, ys, xs,
-                      inv_sigma, k0: int, k1: int) -> torch.Tensor:
-    """Stage sum over the packed list, one weak classifier at a time."""
-
-    def rect(y0, x0, rh, rw):
-        y1, x1 = y0 + rh, x0 + rw
-        return (_lookup(ii_flat, img, base + y1 * stride + x1)
-                - _lookup(ii_flat, img, base + y0 * stride + x1)
-                - _lookup(ii_flat, img, base + y1 * stride + x0)
-                + _lookup(ii_flat, img, base + y0 * stride + x0))
-
-    acc = torch.zeros_like(inv_sigma)
-    for k in range(k0, k1):
-        feat = torch.zeros_like(inv_sigma)
-        for r in range(cascade.rect_xywh.shape[1]):
-            rx, ry, rw, rh = cascade.rect_xywh[k, r]
-            feat = feat + cascade.rect_w[k, r] * rect(ys + ry, xs + rx,
-                                                      rh, rw)
-        f_norm = div_rn(feat * inv_sigma, _AREA)
-        acc = acc + torch.where(f_norm < cascade.wc_threshold[k],
-                                cascade.left_val[k], cascade.right_val[k])
-    return acc
+    """``ii_flat[img, flat]`` read at the flat index ``img * S + flat``,
+    clamped into the whole table (as ``jnp.take(mode="clip")`` and kernel
+    C do)."""
+    table = ii_flat.reshape(-1)
+    return table[torch.clamp(img * ii_flat.shape[1] + flat, 0,
+                             table.numel() - 1)]
 
 
 def _bulk_stage_sum(cascade: Cascade, ii_flat, img, base, stride, ys, xs,
                     inv_sigma, k0: int, k1: int) -> torch.Tensor:
     """Stage sum with one (K, 3, cap) gather per rectangle corner; the
-    same per-lane arithmetic as :func:`_gather_stage_sum`."""
+    same per-lane arithmetic as the ``gather`` backend."""
     rects = cascade.rect_xywh[k0:k1].long()
     w = cascade.rect_w[k0:k1]
     rx, ry = rects[:, :, 0, None], rects[:, :, 1, None]
@@ -109,15 +89,13 @@ def stage_sums(cascade: Cascade, s0: int, s1: int, ii_flat: torch.Tensor,
     One call per tail segment: the caller applies stage thresholds between
     rows.  The lane arrays are integer tensors of one length ``cap``.
     """
-    if backend == "pallas":
-        from .packed_window import stage_sums as packed
-        return packed(cascade, s0, s1, ii_flat, img.int(), base.int(),
-                      stride.int(), ys.int(), xs.int(), inv_sigma)
-    if backend == "bulk":
-        fn = _bulk_stage_sum
-    elif backend == "gather":
-        fn = _gather_stage_sum
-    else:
+    if backend in ("pallas", "gather"):
+        from . import packed_window
+        fn = (packed_window.stage_sums if backend == "pallas"
+              else packed_window.stage_sums_plain)
+        return fn(cascade, s0, s1, ii_flat, img.int(), base.int(),
+                  stride.int(), ys.int(), xs.int(), inv_sigma)
+    if backend != "bulk":
         raise ValueError(f"unknown packed-tail backend: {backend!r} "
                          f"(expected one of {BACKENDS})")
     lanes = [t.long() for t in (img, base, stride, ys, xs)]
@@ -125,8 +103,9 @@ def stage_sums(cascade: Cascade, s0: int, s1: int, ii_flat: torch.Tensor,
     if s1 <= s0:
         return torch.zeros((0, inv_sigma.shape[0]), dtype=torch.float32,
                            device=inv_sigma.device)
-    return torch.stack([fn(cascade, ii_flat, *lanes, inv_sigma, b[s],
-                           b[s + 1]) for s in range(s0, s1)])
+    return torch.stack([_bulk_stage_sum(cascade, ii_flat, *lanes, inv_sigma,
+                                        b[s], b[s + 1])
+                        for s in range(s0, s1)])
 
 
 def select_backend(config, n_windows: int) -> str:

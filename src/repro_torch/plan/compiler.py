@@ -23,11 +23,11 @@ engines used to re-derive independently lives here, once:
 - the per-segment / per-rung packed-tail backend decision from the
   measured ``EngineConfig.tail_rungs`` crossover ladder
   (:func:`select_backend`);
-- the per-level dense-head execution mode — fused megakernel vs split
-  three-dispatch path — from the measured ``EngineConfig.head_rungs``
-  crossover ladder (:func:`select_head_mode`), plus resolution of the
-  autotuned ``head_tile`` / ``lane_block`` shapes the executors hand the
-  kernels.
+- the per-level dense-head execution mode — fused head (kernels S + A)
+  vs split head (S, plain 1/sigma, kernel B per stage) — from the
+  measured ``EngineConfig.head_rungs`` crossover ladder
+  (:func:`select_head_mode`), plus resolution of the autotuned
+  ``head_tile`` / ``lane_block`` shapes the executors hand the kernels.
 
 Plans are cached (``functools.lru_cache``) on their full identity, so a
 plan object — and its ``key`` — is stable across calls: executors key
@@ -198,17 +198,17 @@ def select_backend(config, n_windows: int) -> str:
 def select_head_mode(config, n_windows: int) -> str:
     """Dense-head execution mode for a level of ``n_windows`` windows.
 
-    ``"fused"`` runs the one-dispatch megakernel
-    (:func:`repro_torch.kernels.ops.fused_head`); ``"split"`` the SAT +
-    inv-sigma + per-stage haar_stage path.  Only stride-1 Pallas heads
-    have the fused option — strided / non-Pallas configs always split.
-    ``config.head_mode`` forces a mode; ``"auto"`` walks the calibrated
-    ``config.head_rungs`` ladder — ((max_windows, mode), ...) ascending,
-    from ``calibrated(tune_head=True)`` — picking the smallest rung
-    holding the level (the last rung's mode beyond the ladder).  An empty
-    ladder defaults to ``fused`` (one dispatch strictly dominates three
-    on every level measured so far; the ladder exists for hardware where
-    that stops holding).
+    ``"fused"`` runs :func:`repro_torch.kernels.ops.fused_head`: kernel S
+    (the SATs), then kernel A (1/sigma and every dense stage's sums), two
+    launches; ``"split"`` runs kernel S, the plain-torch 1/sigma grid and
+    one kernel B launch per dense stage.  Only stride-1 kernel heads
+    (``use_pallas``) have the fused option — strided / plain configs
+    always split.  ``config.head_mode`` forces a mode; ``"auto"`` walks
+    the calibrated ``config.head_rungs`` ladder — ((max_windows, mode),
+    ...) ascending — picking the smallest rung holding the level (the
+    last rung's mode beyond the ladder).  An empty ladder defaults to
+    ``fused``, as in the reference, so plans stay equal to its own; the
+    measured flush times of both heads are in ``PERF.md``.
     """
     if not (getattr(config, "use_pallas", False) and config.step == 1):
         return "split"

@@ -155,10 +155,11 @@ class CascadePlan:
         self.segments = segments
         self.capacities = capacities
         self.layout = layout
-        # per-active-level dense-head execution mode ("fused" megakernel vs
-        # "split" three-dispatch path) plus the tuned tile shapes the
-        # executors pass straight to the kernels; defaults mean "split with
-        # package-default tiles" so pre-head-mode constructors stay valid
+        # per-active-level dense-head execution mode ("fused": kernels S +
+        # A; "split": S, plain 1/sigma, kernel B per stage) plus the tuned
+        # tile shapes the executors pass straight to the kernels; defaults
+        # mean "split with package-default tiles" so pre-head-mode
+        # constructors stay valid
         self.head_modes = (head_modes if head_modes
                            else ("split",) * len(self.levels))
         self.head_tile = head_tile
@@ -218,8 +219,8 @@ class LevelWavePlan(NamedTuple):
     plus the per-compaction capacity ladder (fractions of *this* level's
     window count — the batched engine instead shares
     :attr:`CascadePlan.capacities` across the whole stack).  ``head_mode``
-    is this level's dense-head execution choice ("fused" megakernel vs
-    "split" three-dispatch path, from the measured crossover) and
+    is this level's dense-head execution choice ("fused": kernels S +
+    A; "split": S, plain 1/sigma, kernel B per stage) and
     ``head_tile`` the tuned tile shape the executor hands the kernel
     (empty = package default)."""
     key: tuple
