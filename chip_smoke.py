@@ -10,23 +10,29 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
 1. environment: versions, the card's name and power limit, and the build
    of every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
    all at once);
-2. kernels: S, A, B and C each against its plain PyTorch version on the
-   card, at the main path's shapes (level 0 of eight 480x640 images; the
-   first tail segment's real packed list), each timed with CUDA events
-   beside its plain version and its bound;
+2. kernels: S, A, B, C and D each against its plain PyTorch version on
+   the card, at the main path's shapes (level 0 of eight 480x640 images;
+   the first tail segment's real packed list), each timed with CUDA events
+   beside its plain version and its bound; D also against A's 1/sigma;
 3. main path: ``Detector.detect_batch`` on the paper-shaped 25-stage /
    2913-weak-classifier cascade over eight seeded 480x640 scenes, with the
    fused head and with the split head (equal rects), ``detect`` equal to
    the batch per image, no program rebuilt on a repeat flush; then ms per
-   flush and images per second;
+   flush and images per second; then the public kernel API
+   (``ops.integral_image(_batch)``, ``ops.window_inv_sigma_grid(_batch)``)
+   at the kernel sweep's shapes and the main path's, against its twins;
 4. card vs CPU: the pretrained 3-stage cascade on seeded 240x320 face
-   scenes gives the same rects on the card as the port's own CPU run.
+   scenes gives the same rects on the card as the port's own CPU run;
+5. calibration: ``Detector.calibrated(tune_tail=True, tune_head=True)``
+   on the flush image with the most survivors at the main path's width;
+   the calibrated flush gives the default flush's rects, without overflow
+   and without a rebuild on a repeat; ms per flush beside the default's.
 
-Every path driven on the card (the fused flush, the split flush, the two
-``detect`` calls and the card-vs-CPU flush) runs with the launch counts
-set to 0 just before it and read just after: each must have launched the
-kernels of its path (fused: S, A, C; split: S, B, C; ``detect``: S, A, C;
-card vs CPU: S, A) and not the other head's.
+Every path driven on the card runs with the launch counts set to 0 just
+before it and read just after: each must have launched the kernels of its
+path (fused: S, A, C; split: S, B, C; ``detect``: S, A, C; kernel API: S,
+D; card vs CPU: S, A; calibrate: S, A, B, C) and none it must not (no
+engine path launches D).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``; it exits non-zero, with
@@ -56,6 +62,12 @@ SEED = 0
 BATCH = 8
 H, W = 480, 640
 DEVICE = "cuda"
+# packed-list sizes of phase 5's backend race: each size costs ~31 calls of
+# the one-classifier-at-a-time gather backend (~1 s each at 2913
+# classifiers); one size keeps the phase near half a minute
+TAIL_SIZES = (2048,)
+KERNEL_API_SHAPES = ((64, 128), (96, 96), (128, 256))   # bench_kernels sweep
+INV_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
 def fail(msg: str) -> int:
@@ -78,6 +90,43 @@ def diff(got, want) -> str:
 def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_b, t_o = bytes_moved / MEM_BPS, ops / FP32_OPS
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def past_order_bound(torch, got, want, ii2, iic) -> int:
+    """Windows where two 1/sigma grids, made from the same float32 tables
+    by the same operations except the corner order (``(d - b) - (c - a)``
+    in kernel D, ``d - b - c + a`` in kernel A and the oracle twins),
+    differ by more than that order can explain.  Each order rounds its
+    three adds by at most half an ulp of a partial sum no larger than 2m
+    (m the largest corner), so the two window sums differ by at most
+    3 ulp(2m); ``var = s2/576 - mean^2`` then by at most ``(ds2 + 2|mean|
+    ds1 + ds1^2/576) / 576`` plus the roundings of its own operations
+    (4 ulps of its largest term), and ``1/sqrt(var)`` by at most
+    ``inv^3 / 2`` times that plus 4 ulps of ``inv``.  The reference's
+    rtol 1e-4 holds at its test sizes; at 480x640 the tables reach ~1.2e9
+    (an ulp of 128), and this bound is the check there."""
+    ny, nx = got.shape[-2:]
+
+    def ulp(x):
+        x = x.abs().float()
+        return (torch.nextafter(x, torch.full_like(x, float("inf")))
+                - x).double()
+
+    def window_sum_and_gap(t):
+        a, b, c, d = (t[..., y:y + ny, x:x + nx]
+                      for y, x in ((0, 0), (0, 24), (24, 0), (24, 24)))
+        m = torch.stack([a.abs(), b.abs(), c.abs(), d.abs()]).amax(0)
+        s = (d.double() - b.double()) - (c.double() - a.double())
+        return s, 3 * ulp(2 * m)
+
+    s2, g2 = window_sum_and_gap(ii2)
+    s1, g1 = window_sum_and_gap(iic)
+    mean = (s1 / 576).abs()
+    d_var = ((g2 + 2 * mean * g1 + g1 * g1 / 576) / 576
+             + 4 * ulp(torch.maximum(s2.abs() / 576, mean * mean)))
+    inv = torch.maximum(got, want).double()
+    bound = 0.5 * inv ** 3 * d_var + 4 * ulp(inv)
+    return int(((got - want).abs().double() > bound).sum())
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -124,6 +173,80 @@ def main_path_workload(device):
     return cascade, imgs, cfg
 
 
+def check_kernel_api(torch, stack) -> list:
+    """The public kernel API at the kernel sweep's shapes (two seeded
+    images each) and on ``stack`` (the main path's): ``integral_image``
+    (``_batch``) and ``window_inv_sigma_grid`` (``_batch``) against their
+    twins, batch against single, kernel D against its plain version bit
+    for bit.  The twins and A's 1/sigma (the split head's plain grid has
+    its bits) combine corners ``d - b - c + a``: D agrees with them within
+    the reference's rtol at the sweep's sizes and within the corner-order
+    rounding bound everywhere.  Returns what disagreed."""
+    import numpy as np
+    from repro_torch.core.integral import window_inv_sigma
+    from repro_torch.kernels import ops, window_variance
+    dev = stack.device
+    bad = []
+    rng = np.random.default_rng(SEED)
+    inputs = [torch.as_tensor(rng.integers(0, 256, (2, h, w)),
+                              dtype=torch.float32, device=dev)
+              for h, w in KERNEL_API_SHAPES] + [stack]
+    for x in inputs:
+        _b, h, w = x.shape
+        gy, gx = h - 23, w - 23
+        ii_b = ops.integral_image_batch(x)
+        if not torch.allclose(ii_b, ops.integral_image_batch_ref(x),
+                              rtol=1e-6, atol=1e-3):
+            bad.append(f"integral_image_batch {h}x{w} vs its twin")
+        if diff(ops.integral_image(x[0]), ii_b[0]):
+            bad.append(f"integral_image {h}x{w} != batch")
+        _ii, ii2, iic = ops.sat_tables(x)
+        pairs = torch.stack([ii2, iic], dim=1)
+        inv_b = ops.window_inv_sigma_grid_batch(pairs, gy, gx)
+        inv_1 = ops.window_inv_sigma_grid(pairs[0], gy, gx)
+        if diff(inv_b, window_variance.inv_sigma_grid_plain(
+                ii2, iic, gy, gx)) or diff(inv_1, inv_b[0]):
+            bad.append(f"window_inv_sigma_grid(_batch) {h}x{w} vs plain")
+        others = {
+            "batch twin": ops.window_inv_sigma_grid_batch_ref(pairs, gy, gx),
+            "twin": ops.window_inv_sigma_grid_ref(pairs[0], gy, gx)[None],
+            "kernel A": window_inv_sigma(
+                (ii2, iic), torch.arange(gy, device=dev)[:, None],
+                torch.arange(gx, device=dev)[None, :], 24)}
+        for name, want in others.items():
+            n = want.shape[0]
+            if (x is not stack and not torch.allclose(inv_b[:n], want,
+                                                      **INV_TOL)) \
+                    or past_order_bound(torch, inv_b[:n], want, ii2[:n],
+                                        iic[:n]):
+                bad.append(f"window_inv_sigma_grid {h}x{w} vs {name}")
+    return bad
+
+
+def calibrate_main_path(det, imgs, probe: int):
+    """Phase 5's calibrated detector: ``det``'s configuration profiled on
+    ``imgs[probe]`` with ``calibrated(tune_tail=True, tune_head=True)``.
+    The profiling detector keeps every survivor (``capacity_fracs`` of 1:
+    ``detect``'s halving capacities overflow on this cascade).  Pick as
+    ``probe`` the flush image with the most survivors at the first
+    compaction (:func:`calibration_probe`), so the shared capacity holds
+    the whole flush.  ``scripts/port_profile.py --calibrated`` profiles
+    the same detector."""
+    from repro_torch.core import Detector
+    hp, wp = det._bucket_hw(*imgs[probe].shape)
+    n_tail = len(det.batch_plan(hp, wp, len(imgs)).tail_segments)
+    det_prof = Detector(det.cascade, det.config._replace(
+        capacity_fracs=(1.0,) * n_tail), device=det.device)
+    return det_prof.calibrated(imgs[probe], tune_tail=True, tune_head=True,
+                               tail_sizes=TAIL_SIZES)
+
+
+def calibration_probe(head_counts, plan) -> int:
+    """The flush image with the most survivors after the dense prefix,
+    from a batch head's ``counts`` (n_stages, B)."""
+    return int(head_counts[plan.dense_prefix - 1].argmax())
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -142,7 +265,7 @@ def main() -> int:
     from repro_torch.core.training.data import render_scene
     from repro_torch.kernels import native, ops
     from repro_torch.kernels import fused_head, haar_stage, packed_window
-    from repro_torch.kernels import integral_image
+    from repro_torch.kernels import integral_image, window_variance
 
     report: dict = {}
     # ------------------------------------------------------ 1. environment
@@ -227,8 +350,36 @@ def main() -> int:
         (sat_bytes + param_bytes * k_dense + 4 * n_win * (1 + n_dense),
          n_win * (13 + 20 * k_dense)))
 
-    # B: one dense stage over S's SAT and the split head's 1/sigma grid
+    # D: the public API's 1/sigma grid over S's tables of level 0
     ny, nx = H - 23, W - 23
+    inv_d = window_variance.inv_sigma_grid(ii2, iic, ny, nx)
+    inv_dp = window_variance.inv_sigma_grid_plain(ii2, iic, ny, nx)
+    torch.cuda.synchronize()
+    if diff(inv_d, inv_dp):
+        errors.append(f"kernel D: {diff(inv_d, inv_dp)}")
+    gap = (inv_d - inv_a).abs()
+    n_over = past_order_bound(torch, inv_d, inv_a, ii2, iic)
+    if n_over:
+        errors.append(f"kernel D vs kernel A 1/sigma: {n_over} windows past "
+                      "the corner-order rounding bound")
+    n_rel = int((~torch.isclose(inv_d, inv_a, **INV_TOL)).sum())
+    print(f"kernel D vs kernel A 1/sigma (corner orders differ): max abs "
+          f"{float(gap.max()):.3g}, max rel "
+          f"{float((gap / inv_a).max()):.3g}; {n_rel} of {gap.numel()} "
+          f"windows past {INV_TOL}, 0 past the rounding bound")
+    report["d_vs_a"] = {"max_abs": float(gap.max()),
+                        "max_rel": float((gap / inv_a).max()),
+                        "past_rtol_1e-4": n_rel, "windows": gap.numel()}
+    row("window_inv_sigma (D)", "window_variance", "window_variance.cu",
+        "src/repro/kernels/window_variance.py:44",
+        float((inv_d - inv_dp).abs().max()),
+        cuda_ms(torch, lambda: window_variance.inv_sigma_grid(ii2, iic, ny,
+                                                              nx), 20),
+        cuda_ms(torch, lambda: window_variance.inv_sigma_grid_plain(
+            ii2, iic, ny, nx), 3),
+        (2 * 4 * n_tab + 4 * n_win, 13 * n_win))
+
+    # B: one dense stage over S's SAT and the split head's 1/sigma grid
     inv_b = window_inv_sigma((ii2, iic), torch.arange(ny, device=dev)[:, None],
                              torch.arange(nx, device=dev)[None, :], 24)
     if diff(inv_b, inv_a):
@@ -258,7 +409,7 @@ def main() -> int:
     plan = det.batch_plan(hp, wp, BATCH)
     head_fn, _tail_fn = det.batch_parts(hp, wp, BATCH)
     flush_in = det._stack_to_device(*det._pack_stack(imgs, hp, wp))
-    alive_flat, inv_flat, ii_flat, _counts = head_fn(*flush_in)
+    alive_flat, inv_flat, ii_flat, head_counts = head_fn(*flush_in)
     seg = plan.tail_segments[0]
     idx, _cnt = nonzero_static(alive_flat, seg.capacity)
     sel = idx.clamp(min=0)
@@ -321,14 +472,15 @@ def main() -> int:
                          device=DEVICE)
     head_s, head_a = "integral_image", "fused_head"
     split_b, tail_c = "haar_stage", "packed_window"
+    inv_d_k = "window_variance"
     fused_rects, err = on_path(
         "fused", lambda: det.detect_batch(imgs, group=False),
-        (head_s, head_a, tail_c), (split_b,))
+        (head_s, head_a, tail_c), (split_b, inv_d_k))
     if err:
         return fail(err)
     split_rects, err = on_path(
         "split", lambda: det_split.detect_batch(imgs, group=False),
-        (head_s, split_b, tail_c), (head_a,))
+        (head_s, split_b, tail_c), (head_a, inv_d_k))
     if err:
         return fail(err)
     for i, (a, b) in enumerate(zip(fused_rects, split_rects)):
@@ -341,7 +493,7 @@ def main() -> int:
     one_rects, err = on_path(
         "detect", lambda: [det_one.detect(imgs[i], group=False)
                            for i in range(2)],
-        (head_s, head_a, tail_c), (split_b,))
+        (head_s, head_a, tail_c), (split_b, inv_d_k))
     if err:
         return fail(err)
     for i, rects in enumerate(one_rects):
@@ -376,13 +528,21 @@ def main() -> int:
     report["main_path"] = flush
     report["raw_detections"] = n_raw
 
+    bad, err = on_path("kernel_api", lambda: check_kernel_api(torch, stack),
+                       (head_s, inv_d_k),
+                       (head_a, split_b, tail_c))
+    torch.cuda.synchronize()
+    if err or bad:
+        return fail(err or "; ".join(bad))
+    print(f"kernel API == twins at {list(KERNEL_API_SHAPES) + [(H, W)]}")
+
     # ---------------------------------------------------- 4. card vs CPU
     pre, _meta = viola_jones.pretrained()
     faces = scenes(render_scene, 3, 240, 320, SEED + 1, n_faces=2)
     # the 3-stage cascade is all dense prefix: no tail, no kernel C
     on_card, err = on_path(
         "card_vs_cpu", lambda: Detector(pre, cfg, device=DEVICE).detect_batch(
-            faces), (head_s, head_a), (split_b,))
+            faces), (head_s, head_a), (split_b, inv_d_k))
     if err:
         return fail(err)
     on_cpu = Detector(pre, cfg, device="cpu").detect_batch(faces)
@@ -392,11 +552,81 @@ def main() -> int:
     print(f"card == CPU on {len(faces)} face scenes: "
           f"{[len(r) for r in on_card]} grouped rects")
 
-    # each kernel's launches are those of the first main-path flush that
-    # runs it: S, A and C on the fused flush, B on the split flush
+    # ------------------------------------------------- 5. calibration
+    t_cal = time.perf_counter()
+    probe = calibration_probe(head_counts, plan)
+    cal, err = on_path(
+        "calibrate", lambda: calibrate_main_path(det, imgs, probe),
+        (head_s, head_a, split_b, tail_c), (inv_d_k,))
+    if err:
+        return fail(err)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t_cal
+    prof = cal.cal_profile
+    cal_plan = cal.batch_plan(hp, wp, BATCH)
+    cap_cal = cal_plan.tail_segments[0].capacity
+    cap_def = plan.tail_segments[0].capacity
+    print(f"calibration: probe image {probe}, {cal_s:.1f} s, tail sizes "
+          f"{TAIL_SIZES} [{smi}]")
+    print(f"  tail rungs {prof['tail']['rungs']} crossover "
+          f"{prof['tail']['crossover']} ms {prof['tail']['ms']}")
+    print(f"  head rungs {prof['head']['rungs']} crossover "
+          f"{prof['head']['crossover']}")
+    print(f"  head_tiles {prof['head_tiles']} lane_block "
+          f"{prof['lane_block']} (the kernels ignore both)")
+    print(f"  batch_capacity_fracs {cal.config.batch_capacity_fracs}")
+    print(f"  first tail segment: {cap_cal} lanes calibrated, {cap_def} "
+          f"default")
+    try:
+        cal_rects = cal.detect_batch(imgs, group=False)
+    except RuntimeError as e:
+        return fail(f"calibrated flush: {e}")
+    for i, (a, b) in enumerate(zip(cal_rects, fused_rects)):
+        if not np.array_equal(a, b):
+            return fail(f"calibrated and default flushes differ on image {i}")
+    builds = cal.program_builds
+    cal.detect_batch(imgs, group=False)
+    if cal.program_builds != builds:
+        return fail("a repeat calibrated flush rebuilt a program")
+    timed: dict = {"default": [], "calibrated": []}
+    for label, d in (("default", det), ("calibrated", cal),
+                     ("calibrated", cal), ("default", det)):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            d.detect_batch(imgs, group=False)
+        torch.cuda.synchronize()
+        timed[label].append((time.perf_counter() - t0) / 3 * 1e3)
+    cal_head, cal_tail = cal.batch_parts(hp, wp, BATCH)
+    cal_out = cal_head(*flush_in)
+    calib = {"seconds": cal_s, "probe": probe, "tail_sizes": TAIL_SIZES,
+             "tail_rungs": prof["tail"]["rungs"],
+             "tail_crossover": prof["tail"]["crossover"],
+             "tail_ms": prof["tail"]["ms"],
+             "head_rungs": prof["head"]["rungs"],
+             "head_crossover": prof["head"]["crossover"],
+             "head_tiles": prof["head_tiles"],
+             "lane_block": prof["lane_block"],
+             "batch_capacity_fracs": cal.config.batch_capacity_fracs,
+             "densities": prof["densities"],
+             "first_segment_lanes": {"calibrated": cap_cal,
+                                     "default": cap_def},
+             "tail_ms_calibrated": cuda_ms(torch, lambda: cal_tail(*cal_out),
+                                           3)}
+    for label, ms_list in timed.items():
+        ms = sum(ms_list) / len(ms_list)
+        calib[label] = {"ms_per_flush": ms, "imgs_per_s": BATCH / ms * 1e3}
+        print(f"{label} flush: {ms:.2f} ms per flush, "
+              f"{BATCH / ms * 1e3:.1f} imgs/s (runs {ms_list}) [{smi}]")
+    print(f"calibrated flush device time: tail "
+          f"{calib['tail_ms_calibrated']:.2f} ms [{smi}]")
+    report["calibration"] = calib
+
+    # each kernel's launches are those of the first path that runs it: S, A
+    # and C on the fused flush, B on the split flush, D on the kernel API
+    launch_path = {split_b: "split", inv_d_k: "kernel_api"}
     for r in rows:
         k = r.pop("_kernel")
-        r["launches"] = by_path["split" if k == split_b else "fused"][k]
+        r["launches"] = by_path[launch_path.get(k, "fused")][k]
         r["launches_by_path"] = {p: c[k] for p, c in by_path.items()}
     report["kernels"] = rows
     out = ROOT / "chiprun_out"

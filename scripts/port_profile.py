@@ -2,6 +2,7 @@
 """Where a flush of the port's main path spends its time, on one GPU.
 
     python3 scripts/port_profile.py [--flushes 3] [--head fused|split]
+                                    [--calibrated]
 
 Builds the port's kernels, warms ``Detector.detect_batch`` (packed
 strategy) on the main path's workload as ``chip_smoke.main_path_workload``
@@ -11,8 +12,12 @@ with ``torch.profiler`` and prints, per flush: the host wall time, the
 summed device time of every kernel and copy (from the trace), the device's
 idle share (1 - device time / wall time; device work does not overlap
 itself on one stream), and the operations that took the most device time.
-Writes the same as JSON to ``chiprun_out/port_profile_<head>.json``.  Needs a
-CUDA card; fails without one.
+``--calibrated`` profiles instead the calibrated detector of
+``chip_smoke.py``'s phase 5 (``chip_smoke.calibrate_main_path``: measured
+capacities, tail and head ladders; about a minute of racing first), whose
+head mode its ladder picks.  Writes the same as JSON to
+``chiprun_out/port_profile_<head or calibrated>.json``.  Needs a CUDA
+card; fails without one.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--flushes", type=int, default=3)
     ap.add_argument("--head", choices=("fused", "split"), default="fused")
+    ap.add_argument("--calibrated", action="store_true")
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -40,7 +46,8 @@ def main() -> int:
         print("port_profile: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-    from chip_smoke import main_path_workload
+    from chip_smoke import (calibrate_main_path, calibration_probe,
+                            main_path_workload)
     from repro_torch.core import Detector
     from repro_torch.kernels import native
 
@@ -50,6 +57,19 @@ def main() -> int:
     native.build_all()
     cascade, imgs, cfg = main_path_workload("cuda")
     det = Detector(cascade, cfg._replace(head_mode=args.head))
+    label = args.head
+    if args.calibrated:
+        hp, wp = det._bucket_hw(*imgs[0].shape)
+        head_fn, _tail_fn = det.batch_parts(hp, wp, len(imgs))
+        counts = head_fn(*det._stack_to_device(
+            *det._pack_stack(imgs, hp, wp)))[3]
+        probe = calibration_probe(counts, det.batch_plan(hp, wp, len(imgs)))
+        det = calibrate_main_path(Detector(cascade, cfg), imgs, probe)
+        label = "calibrated"
+        plan = det.batch_plan(hp, wp, len(imgs))
+        print(f"calibrated on image {probe}: tail segments "
+              f"{[seg.capacity for seg in plan.tail_segments]} lanes, head "
+              f"modes {plan.head_modes}")
     for _ in range(2):
         det.detect_batch(imgs, group=False)
     torch.cuda.synchronize()
@@ -71,12 +91,12 @@ def main() -> int:
     top = [{"name": e.key, "calls_per_flush": e.count / args.flushes,
             "device_ms_per_flush": e.self_device_time_total / 1e3
             / args.flushes} for e in events[:15]]
-    out = {"card": smi, "head": args.head, "flushes": args.flushes,
+    out = {"card": smi, "head": label, "flushes": args.flushes,
            "wall_ms_per_flush": wall_ms,
            "device_ms_per_flush": device_ms,
            "idle_share": 1.0 - device_ms / wall_ms, "top": top}
     print(f"card: {smi}")
-    print(f"{args.head} head: wall {wall_ms:.2f} ms per flush, device "
+    print(f"{label}: wall {wall_ms:.2f} ms per flush, device "
           f"{device_ms:.2f} ms, idle share {out['idle_share']:.3f}")
     for t in top:
         print(f"  {t['device_ms_per_flush']:9.3f} ms  "
@@ -87,7 +107,7 @@ def main() -> int:
         return 1
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
-    (dest / f"port_profile_{args.head}.json").write_text(
+    (dest / f"port_profile_{label}.json").write_text(
         json.dumps(out, indent=1))
     return 0
 

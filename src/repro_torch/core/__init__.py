@@ -5,6 +5,6 @@ from .cascade import (Cascade, WINDOW, make_cascade, from_numpy,  # noqa: F401
 from .integral import (CENTRE, integral_image, integral_images,  # noqa: F401
                        rect_sum, window_inv_sigma)
 from .engine import (Detector, EngineConfig, BatchResult,  # noqa: F401
-                     LevelResult)
+                     LevelResult, calibrate_capacities)
 from .pyramid import pyramid_plan, downscale_nearest  # noqa: F401
 from .nms import group_rectangles, group_rectangles_batch, iou_matrix  # noqa: F401

@@ -28,8 +28,12 @@ backend gives the oracle's bits.
 
 Executors are built once per ``plan.key`` (``program_builds`` counts the
 builds); their index tables go to the device once, at build time.
-``Detector.calibrated``, ``work_profile`` and ``calibrate_capacities``
-come with the calibration slice.
+
+``Detector.calibrated`` profiles one image and returns a detector whose
+capacities (and, on request, tail and head ladders) are measured on this
+device; ``calibrate_capacities`` is its safety shaping and
+``work_profile`` the per-level weak-evaluation accounting, both as in the
+reference.
 """
 
 from __future__ import annotations
@@ -42,14 +46,15 @@ import torch
 from .cascade import Cascade, WINDOW
 from .features import stage_sum_windows
 from .integral import window_inv_sigma
-from .pyramid import downscale_indices
+from .pyramid import downscale_indices, downscale_nearest
 from . import nms
+from repro_torch.kernels import autotune as kautotune
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import packed_tail
 import repro_torch.plan as planlib
 
 __all__ = ["EngineConfig", "LevelResult", "BatchResult", "Detector",
-           "nonzero_static", "resolve_device"]
+           "calibrate_capacities", "nonzero_static", "resolve_device"]
 
 
 class EngineConfig(NamedTuple):
@@ -94,6 +99,14 @@ class BatchResult(NamedTuple):
     valid: torch.Tensor         # (cap,) bool
     alive_counts: torch.Tensor  # (n_stages, B) int32 per-image survivors
     overflow: torch.Tensor      # () bool: shared capacity exceeded
+
+
+def calibrate_capacities(alive_counts, n_windows: int,
+                         safety: float = 2.0) -> tuple:
+    """Profile-guided capacity fractions from measured per-stage survivor
+    counts: ``min(1, count / n_windows * safety + 1e-3)`` each."""
+    fr = np.asarray(alive_counts, np.float64) / max(n_windows, 1)
+    return tuple(float(min(1.0, f * safety + 1e-3)) for f in fr)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -143,6 +156,7 @@ class Detector:
         self.stage_bounds = tuple(cascade.bounds)
         self.n_stages = cascade.n_stages
         planlib.validate_config(self.n_stages, config)
+        self.cal_profile: dict = {}      # set by calibrated() on its result
         self.program_builds = 0          # executor builds (plan-cache probe)
         self._level_fns: dict = {}       # level-plan key -> level fn
         self._batch_fns: dict = {}       # batch-plan key -> (head, tail)
@@ -550,3 +564,135 @@ class Detector:
             out.append(np.concatenate(rects, axis=0) if rects
                        else np.zeros((0, 4), np.int32))
         return out
+
+    # ---------------------------------------------------------- calibration
+    def calibrated(self, image, safety: float = 2.0,
+                   tune_tail: bool = False,
+                   tail_sizes: tuple | None = None,
+                   tune_head: bool = False) -> "Detector":
+        """Profile-guided detector, as ``repro``'s ``Detector.calibrated``.
+
+        Runs ``detect_raw(image)`` with the current capacities, measures the
+        survivors at each compaction boundary and returns a
+        ``Detector(self.cascade, cfg, device=self.device)`` whose
+        ``capacity_fracs`` are the worst level's fractions and whose
+        ``batch_capacity_fracs`` are the fractions summed over levels, each
+        shaped by :func:`calibrate_capacities` with ``safety``.
+
+        ``tune_tail=True`` races the packed-tail backends on the profiled
+        image's levels, each weighted by its measured density
+        (``packed_tail.measure_rungs``, at ``tail_sizes`` if given) and
+        persists ``tail_rungs`` with ``tail_backend="auto"``.
+        ``tune_head=True`` races the fused and split heads per level and
+        the tiles (``autotune.measure_head``) and the lane blocks
+        (``autotune.measure_lane_block``, at the tail crossover or 2048)
+        and persists ``head_rungs`` with ``head_mode="auto"``,
+        ``head_tile`` and ``lane_block``.  The races run on this detector's
+        device.  The result's ``cal_profile`` has the reference's keys:
+        ``densities``, ``n_windows``, ``level_densities``, ``levels``, and
+        ``tail``, ``head``, ``head_tiles``, ``lane``, ``lane_block`` when
+        tuned.
+        """
+        image = np.asarray(image, np.float32)
+        h, w = image.shape
+        hp, wp = self._bucket_hw(h, w)
+        bplan = self.batch_plan(hp, wp)       # per-level window counts
+        levels = self.detect_raw(image)
+        comp_stages = [seg.s0 for seg in bplan.segments if not seg.dense]
+        if not comp_stages:  # dense mode: single final compaction
+            comp_stages = [self.n_stages]
+        fracs = np.zeros(len(comp_stages))          # worst level, per comp
+        surv_tot = np.zeros(len(comp_stages))       # summed over levels
+        level_density: list[float] = []             # first compaction, per lv
+        win_tot = 0
+        for lp, (res, _scale) in zip(bplan.levels, levels):
+            nwin = max(lp.n_windows, 1)
+            win_tot += nwin
+            cnt = res.alive_counts.cpu().numpy().astype(np.float64)
+            for k, s0 in enumerate(comp_stages):
+                survivors = cnt[s0 - 1] if s0 > 0 else float(nwin)
+                fracs[k] = max(fracs[k], survivors / nwin)
+                surv_tot[k] += survivors
+                if k == 0:
+                    level_density.append(survivors / nwin)
+        densities = (surv_tot / max(win_tot, 1)).tolist()
+        fracs = calibrate_capacities(fracs, 1, safety)
+        batch_fracs = calibrate_capacities(surv_tot, win_tot, safety)
+        cfg = self.config._replace(capacity_fracs=fracs,
+                                   batch_capacity_fracs=batch_fracs)
+        profile: dict = {
+            "densities": densities, "n_windows": int(win_tot),
+            "level_densities": level_density,
+            "levels": [(lp.height, lp.width, lp.n_windows)
+                       for lp in bplan.levels],
+        }
+        if tune_tail or tune_head:
+            # the profiled image at every pyramid level of the plan, each
+            # weighted by its expected packed-window share
+            padded = torch.zeros((hp, wp), dtype=torch.float32,
+                                 device=self.device)
+            padded[:h, :w] = torch.from_numpy(image)
+            workload = [(downscale_nearest(padded, lp.height, lp.width),
+                         d * lp.n_windows)
+                        for lp, d in zip(bplan.levels, level_density)]
+        if tune_tail:
+            kw = {} if tail_sizes is None else {"sizes": tuple(tail_sizes)}
+            tail = packed_tail.measure_rungs(self.cascade, workload=workload,
+                                             **kw)
+            cfg = cfg._replace(tail_backend="auto", tail_rungs=tail["rungs"])
+            profile["tail"] = tail
+        if tune_head:
+            n_dense = bplan.dense_prefix
+            if n_dense > 0:
+                head = kautotune.measure_head(self.cascade, workload,
+                                              n_dense=n_dense)
+                cfg = cfg._replace(head_mode="auto",
+                                   head_rungs=head["rungs"],
+                                   head_tile=head["head_tiles"])
+                profile["head"] = head
+                profile["head_tiles"] = head["head_tiles"]
+            lane_size = (profile["tail"]["crossover"]
+                         if tune_tail and profile["tail"]["crossover"] > 0
+                         else 2048)
+            lane = kautotune.measure_lane_block(self.cascade, workload,
+                                                size=lane_size)
+            cfg = cfg._replace(lane_block=lane["lane_block"])
+            profile["lane"] = lane
+            profile["lane_block"] = lane["lane_block"]
+        det = Detector(self.cascade, cfg, device=self.device)
+        det.cal_profile = profile
+        return det
+
+    # ------------------------------------------------------------- analysis
+    def work_profile(self, image) -> dict:
+        """Windows and weak evaluations per level (ideal early exit vs the
+        dense sweep), as the reference's ``work_profile``."""
+        levels = self.detect_raw(image)
+        sizes = self.cascade.stage_sizes().astype(np.int64)
+        img = np.asarray(image)
+        hp, wp = self._bucket_hw(img.shape[0], img.shape[1])
+        bplan = self.batch_plan(hp, wp)   # per-level window counts
+        total_windows = 0
+        weak_early = 0   # ideal per-stage early exit (sequential semantics)
+        weak_dense = 0   # delayed rejection
+        per_level = []
+        for lp, (res, scale) in zip(bplan.levels, levels):
+            nwin = lp.n_windows
+            counts = res.alive_counts.cpu().numpy().astype(np.int64)
+            alive_before = np.concatenate([[nwin], counts[:-1]])
+            we = int((alive_before * sizes).sum())
+            wd = int(nwin * sizes.sum())
+            weak_early += we
+            weak_dense += wd
+            total_windows += nwin
+            per_level.append({
+                "scale": scale, "windows": nwin,
+                "alive_counts": counts, "weak_evals_early": we,
+                "weak_evals_dense": wd,
+            })
+        return {
+            "total_windows": total_windows,
+            "weak_evals_early_exit": weak_early,
+            "weak_evals_dense": weak_dense,
+            "per_level": per_level,
+        }

@@ -1,17 +1,35 @@
-"""Tile and lane-block tables, copied from ``repro.kernels.autotune``.
+"""Block-shape tables and the kernel racers, ported from
+``repro.kernels.autotune``.
 
-Only the constants come across: the plan compiler resolves an empty
+The tables are the reference's: the plan compiler resolves an empty
 ``EngineConfig.head_tile`` / ``lane_block`` to ``DEFAULT_TILE``, so the
 port's plans carry the reference's tiles and stay equal to its plans.
-The port's CUDA kernels choose their own thread-block shapes and ignore
-these TPU tiles; a tile never changes a kernel's bits.  The racers
-(``measure_head``, ``measure_lane_block``) come with the calibration
-slice.
+
+Two racers, both run by ``Detector.calibrated(tune_head=True)`` on the
+profiled image at every pyramid level:
+
+- :func:`measure_head` races the fused head (kernel S then kernel A)
+  against the split head the engine runs (kernel S, plain-torch 1/sigma,
+  kernel B once per dense stage) per level, and the head tiles; it gives
+  the ``head_rungs`` ladder and ``head_tile``.
+- :func:`measure_lane_block` races the packed tail's lane blocks on kernel
+  C; it gives ``lane_block``.
+
+The port's CUDA kernels choose their own thread blocks and ignore these
+TPU tiles, so on the card every tile candidate times the same launch and
+the tile winners reflect noise.  The races and their schema stay so that
+plans stay equal to the reference's.
 """
 
 from __future__ import annotations
 
-__all__ = ["DEFAULT_TILE", "HEAD_TILE_CANDIDATES", "LANE_BLOCK_CANDIDATES"]
+import time
+
+import numpy as np
+import torch
+
+__all__ = ["DEFAULT_TILE", "HEAD_TILE_CANDIDATES", "LANE_BLOCK_CANDIDATES",
+           "measure_head", "measure_lane_block"]
 
 # repro: ignore[LANE_BLOCK] copy of the reference's tile, for equal plans
 DEFAULT_TILE = (8, 128)
@@ -21,3 +39,123 @@ HEAD_TILE_CANDIDATES = ((8, 128), (16, 128), (8, 256))
 
 # repro: ignore[LANE_BLOCK] copy of the reference's table, for equal plans
 LANE_BLOCK_CANDIDATES = ((8, 128), (16, 128), (8, 256))
+
+
+def _best_ms(fn, device: torch.device, repeats: int, inner: int) -> float:
+    """Best-of-``repeats`` mean wall time (ms) over ``inner`` warm calls of
+    ``fn()``; on the card the device is drained before every clock read."""
+    def drain():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    fn()                                     # warm-up outside the clock
+    best = float("inf")
+    for _ in range(repeats):
+        drain()
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        drain()
+        best = min(best, (time.perf_counter() - t0) / inner)
+    return best * 1e3
+
+
+def _tile_label(tile) -> str:
+    return f"{tile[0]}x{tile[1]}"
+
+
+def measure_head(cascade, workload, *, n_dense: int,
+                 candidates=HEAD_TILE_CANDIDATES, repeats: int = 2,
+                 inner: int = 3) -> dict:
+    """Race the fused head against the split head, per pyramid level.
+
+    ``workload`` is the calibrated ``(level_image, weight)`` list;
+    ``n_dense`` the plan's dense-prefix stage count.  Per level it times
+    the split head and the fused head at each candidate tile (the same
+    launches: the kernels ignore the tile) on the cascade's device.
+    Returns the reference's schema::
+
+        {"levels": [(h, w, n_windows), ...],
+         "ms": {"split": [...], "fused": [...]},     # fused = winner tile
+         "tile_ms": {"8x128": [...], ...},           # fused, per candidate
+         "head_tiles": (ty, tx),                     # total-time winner
+         "rungs": ((n_windows, mode), ...),          # ascending by windows
+         "crossover": int}                           # smallest fused win, -1
+    """
+    from repro_torch.core.cascade import WINDOW
+    from repro_torch.core.integral import window_inv_sigma
+    from . import ops
+
+    n_dense = min(int(n_dense), cascade.n_stages)
+    if n_dense < 1:
+        raise ValueError("measure_head needs at least one dense stage")
+    device = cascade.rect_w.device
+    candidates = tuple(tuple(c) for c in candidates)
+    levels: list[tuple[int, int, int]] = []
+    split_ms: list[float] = []
+    tile_ms: dict[str, list[float]] = {_tile_label(c): [] for c in candidates}
+
+    for img, _weight in workload:
+        img = torch.as_tensor(img, dtype=torch.float32, device=device)
+        h, w = img.shape
+        ny, nx = h - WINDOW + 1, w - WINDOW + 1
+        levels.append((h, w, ny * nx))
+        gy = torch.arange(ny, device=device)[:, None]
+        gx = torch.arange(nx, device=device)[None, :]
+
+        def split_head(img=img, gy=gy, gx=gx):
+            ii, ii2, iic = ops.sat_tables(img[None])
+            inv = window_inv_sigma((ii2, iic), gy, gx, WINDOW)
+            return [ops.dense_stage_sums_batch(cascade, s, ii, inv)
+                    for s in range(n_dense)]
+
+        split_ms.append(_best_ms(split_head, device, repeats, inner))
+        for cand in candidates:
+            tile_ms[_tile_label(cand)].append(_best_ms(
+                lambda img=img: ops.fused_head(cascade, 0, n_dense, img),
+                device, repeats, inner))
+
+    totals = [sum(tile_ms[_tile_label(c)]) for c in candidates]
+    winner = candidates[int(np.argmin(totals))]
+    fused_ms = list(tile_ms[_tile_label(winner)])
+    order = np.argsort([nwin for (_h, _w, nwin) in levels], kind="stable")
+    rungs = tuple(
+        (levels[i][2], "fused" if fused_ms[i] <= split_ms[i] else "split")
+        for i in order)
+    crossover = next((nw for nw, mode in rungs if mode == "fused"), -1)
+    return {"levels": levels,
+            "ms": {"split": split_ms, "fused": fused_ms},
+            "tile_ms": tile_ms, "head_tiles": winner,
+            "rungs": rungs, "crossover": crossover}
+
+
+def measure_lane_block(cascade, workload=None, *, size: int = 2048,
+                       candidates=LANE_BLOCK_CANDIDATES, repeats: int = 3,
+                       inner: int = 5, seed: int = 0) -> dict:
+    """Race packed-tail lane blocks at one packed-list size.
+
+    Draws ``size`` lanes with ``packed_tail._build_workload``'s sampler and
+    times kernel C (the ``"pallas"`` backend) evaluating the whole cascade
+    once per candidate (the same launch: the kernel ignores the block).
+    ``size`` should be the calibrated tail crossover.  Returns
+    ``{"size", "n_windows", "candidates", "ms", "lane_block"}``.
+    """
+    from . import packed_tail
+
+    rng = np.random.default_rng(seed)
+    if workload is None:
+        workload = [(rng.integers(0, 255, (160, 160)).astype(np.float32),
+                     1.0)]
+    device = cascade.rect_w.device
+    ii_flat, sample, n_windows = packed_tail._build_workload(workload, rng,
+                                                             device)
+    n_stages = cascade.n_stages
+    candidates = tuple(tuple(c) for c in candidates)
+    lanes = sample(int(size))
+    ms = [_best_ms(lambda: packed_tail.stage_sums(
+        cascade, 0, n_stages, ii_flat, *lanes, backend="pallas"),
+        device, repeats, inner) for _cand in candidates]
+    winner = candidates[int(np.argmin(ms))]
+    return {"size": int(size), "n_windows": int(n_windows),
+            "candidates": [tuple(c) for c in candidates], "ms": ms,
+            "lane_block": winner}

@@ -39,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 SOURCES = ("integral_image.cu", "fused_head.cu", "haar_stage.cu",
-           "packed_window.cu")
+           "packed_window.cu", "window_variance.cu")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -15,6 +15,11 @@ Kernels and what they port:
 - A  ``fused_head(_batch)``          <- ``fused_head_kernel`` (S, then A)
 - B  ``dense_stage_sums(_batch)``    <- ``haar_stage_sums_kernel``
 - C  ``packed_stage_sums``           <- ``packed_stage_sums_kernel``
+- D  ``window_inv_sigma_grid(_batch)`` <- ``window_inv_sigma_kernel``
+
+``integral_image(_batch)`` run kernel S and return its first table (the
+padded SAT of the image), as the reference's ``integral_image_kernel``
+wrappers do.
 """
 
 from __future__ import annotations
@@ -29,10 +34,15 @@ from . import fused_head as _fused
 from . import haar_stage as _haar
 from . import packed_window as _packed
 from . import ref
+from . import window_variance as _wv
 from .integral_image import sat_tables
 from .native import launches, reset_launches
 
 __all__ = ["sat_tables", "sat_tables_ref",
+           "integral_image", "integral_image_ref",
+           "integral_image_batch", "integral_image_batch_ref",
+           "window_inv_sigma_grid", "window_inv_sigma_grid_ref",
+           "window_inv_sigma_grid_batch", "window_inv_sigma_grid_batch_ref",
            "fused_head", "fused_head_ref",
            "fused_head_batch", "fused_head_batch_ref",
            "dense_stage_sums", "dense_stage_sums_ref",
@@ -60,6 +70,51 @@ def sat_tables_ref(imgs: torch.Tensor):
     centred = img - CENTRE
     return tuple(F.pad(ref.integral_image_ref(t), (1, 0, 1, 0))
                  for t in (img, centred * centred, centred))
+
+
+def integral_image_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) -> (B, H+1, W+1) padded SATs (kernel S's first table)."""
+    return sat_tables(imgs)[0]
+
+
+def integral_image(img: torch.Tensor) -> torch.Tensor:
+    """Padded SAT (H+1, W+1) of one (H, W) image."""
+    return integral_image_batch(img[None])[0]
+
+
+def integral_image_batch_ref(imgs: torch.Tensor) -> torch.Tensor:
+    """Oracle twin of :func:`integral_image_batch`."""
+    return F.pad(ref.integral_image_ref(imgs), (1, 0, 1, 0))
+
+
+integral_image_ref = integral_image_batch_ref
+
+
+# ------------------------------------------------------------ 1/sigma (D)
+def window_inv_sigma_grid_batch(ii_pairs: torch.Tensor, ny: int,
+                                nx: int) -> torch.Tensor:
+    """(B, ny, nx) 1/sigma grids from stacked (B, 2, H+1, W+1) ``(ii2,
+    iic)`` SAT pairs; ``ny`` / ``nx`` may reach past the tables (edge
+    clamp)."""
+    return _wv.inv_sigma_grid(ii_pairs[:, 0], ii_pairs[:, 1], ny, nx)
+
+
+def window_inv_sigma_grid(ii_pair: torch.Tensor, ny: int,
+                          nx: int) -> torch.Tensor:
+    """(ny, nx) 1/sigma grid from one stacked (2, H+1, W+1) pair."""
+    return window_inv_sigma_grid_batch(ii_pair[None], ny, nx)[0]
+
+
+def window_inv_sigma_grid_batch_ref(ii_pairs: torch.Tensor, ny: int,
+                                    nx: int) -> torch.Tensor:
+    """Oracle twin of :func:`window_inv_sigma_grid_batch`."""
+    return ref.window_inv_sigma_ref(ii_pairs[:, 0], ii_pairs[:, 1], ny, nx)
+
+
+def window_inv_sigma_grid_ref(ii_pair: torch.Tensor, ny: int,
+                              nx: int) -> torch.Tensor:
+    """Oracle twin of :func:`window_inv_sigma_grid`."""
+    return ref.window_inv_sigma_ref(ii_pair[0], ii_pair[1], ny, nx)
 
 
 # ---------------------------------------------------------------- fused (A)

@@ -20,22 +20,38 @@ k), as in ``repro.kernels.packed_tail``:
     so configs and plans stay equal to its own.
 
 Out-of-range flat SAT indices clamp into the table, as
-``jnp.take(mode="clip")`` does; valid lanes never produce one.  ``measure_rungs`` (the backend race) comes with the
-calibration slice.
+``jnp.take(mode="clip")`` does; valid lanes never produce one.
+
+:func:`measure_rungs` races the three backends at capacity-ladder sizes on
+a real multi-level packed workload (:func:`_build_workload`, whose sampler
+draws the reference's lanes from the same seed) and returns the
+reference's schema; ``Detector.calibrated(tune_tail=True)`` persists its
+ladder in ``EngineConfig.tail_rungs``.  On the card the ``gather``
+backend is kernel C's plain version, one weak classifier at a time (about
+90 small launches per classifier), so a size costs about a second per
+call at the paper cascade's 2913 classifiers.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.cascade import Cascade, WINDOW
-from repro_torch.core.integral import div_rn
+from repro_torch.core.integral import div_rn, integral_images, window_inv_sigma
 
-__all__ = ["BACKENDS", "stage_sums", "select_backend"]
+from .autotune import _best_ms
+
+__all__ = ["BACKENDS", "DEFAULT_RUNG_SIZES", "stage_sums", "select_backend",
+           "measure_rungs"]
 
 _AREA = float(WINDOW * WINDOW)
 
 BACKENDS = ("gather", "bulk", "pallas")
+
+# capacity-ladder sizes at which measure_rungs races the backends (the
+# reference's: they bracket BATCH_CAP_FLOOR=128 .. the stream rungs)
+DEFAULT_RUNG_SIZES = (128, 512, 2048, 8192)
 
 
 def _lookup(ii_flat: torch.Tensor, img: torch.Tensor,
@@ -113,3 +129,103 @@ def select_backend(config, n_windows: int) -> str:
     delegates to the plan layer's one decision function."""
     from repro_torch.plan import select_backend as _select
     return _select(config, n_windows)
+
+
+def _build_workload(workload, rng: np.random.Generator, device):
+    """Per-level SATs and a lane sampler for :func:`measure_rungs`.
+
+    ``workload`` is a list of ``(image, weight)``: one grayscale image per
+    pyramid level and that level's expected share of packed windows.
+    Returns ``(ii_flat (1, S) on device, sample, n_windows)``, where
+    ``sample(size)`` draws a level-sorted packed list of ``size`` lanes
+    spread over the levels in proportion to the weights (largest
+    remainder) and returns ``(img, base, stride, ys, xs, inv)`` on the
+    device.  ``ys`` / ``xs`` are drawn from ``rng`` in the reference's
+    order, so the same seed gives the reference's lanes.
+    """
+    sats, pairs, bases, strides, shapes = [], [], [], [], []
+    base = 0
+    for img, _weight in workload:
+        img = torch.as_tensor(img, dtype=torch.float32, device=device)
+        h, w = img.shape
+        ii, pair = integral_images(img)
+        sats.append(ii.reshape(-1))
+        pairs.append(pair)
+        bases.append(base)
+        strides.append(w + 1)
+        shapes.append((h, w))
+        base += (h + 1) * (w + 1)
+    ii_flat = torch.cat(sats)[None, :]
+    weights = np.asarray([max(float(wt), 0.0) for _im, wt in workload])
+    if weights.sum() <= 0:
+        weights = np.asarray([(h - WINDOW + 1) * (w - WINDOW + 1)
+                              for h, w in shapes], np.float64)
+    weights = weights / weights.sum()
+    hi_y = np.asarray([h - WINDOW + 1 for h, _w in shapes])
+    hi_x = np.asarray([w - WINDOW + 1 for _h, w in shapes])
+
+    def lanes(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    def sample(size):
+        exact = weights * size
+        per = np.floor(exact).astype(int)
+        for i in np.argsort(-(exact - per))[:size - per.sum()]:
+            per[i] += 1
+        lv = np.repeat(np.arange(len(shapes)), per)
+        ys = rng.integers(0, hi_y[lv]).astype(np.int32)
+        xs = rng.integers(0, hi_x[lv]).astype(np.int32)
+        inv = [window_inv_sigma(
+            pairs[v], torch.as_tensor(ys[lv == v], device=device).long(),
+            torch.as_tensor(xs[lv == v], device=device).long(), WINDOW)
+               for v in range(len(shapes)) if (lv == v).any()]
+        inv = (torch.cat(inv) if inv
+               else torch.zeros(0, dtype=torch.float32, device=device))
+        return (lanes(np.zeros(len(lv))), lanes([bases[v] for v in lv]),
+                lanes([strides[v] for v in lv]), lanes(ys), lanes(xs), inv)
+
+    n_windows = int(sum((h - WINDOW + 1) * (w - WINDOW + 1)
+                        for h, w in shapes))
+    return ii_flat, sample, n_windows
+
+
+def measure_rungs(cascade: Cascade, *, sizes: tuple = DEFAULT_RUNG_SIZES,
+                  repeats: int = 3, inner: int = 10, seed: int = 0,
+                  workload: list | None = None) -> dict:
+    """Race the packed-tail backends at capacity-ladder sizes.
+
+    Times each backend evaluating the whole cascade on a packed list of
+    each size (best of ``repeats`` means over ``inner`` warm calls, the
+    device drained before every clock read) on the cascade's device.
+    ``workload`` is the profiled image's ``(level_image, weight)`` list
+    (``Detector.calibrated`` passes it); without it one random 160x160
+    level drawn from ``seed``.  Returns the reference's schema::
+
+        {"sizes": [...], "n_windows": int, "levels": int,
+         "ms": {backend: [...]},
+         "rungs": ((max_windows, winner), ...), "crossover": int}
+
+    ``crossover`` is the smallest size won by kernel C (``"pallas"``),
+    -1 if it wins none.
+    """
+    rng = np.random.default_rng(seed)
+    if workload is None:
+        workload = [(rng.integers(0, 255, (160, 160)).astype(np.float32),
+                     1.0)]
+    device = cascade.rect_w.device
+    ii_flat, sample, n_windows = _build_workload(workload, rng, device)
+    n_stages = cascade.n_stages
+    ms: dict[str, list] = {b: [] for b in BACKENDS}
+    for size in sizes:
+        lanes = sample(size)
+        for bk in BACKENDS:
+            ms[bk].append(_best_ms(
+                lambda bk=bk: stage_sums(cascade, 0, n_stages, ii_flat,
+                                         *lanes, backend=bk),
+                device, repeats, inner))
+    rungs = tuple((size, min(BACKENDS, key=lambda b: ms[b][i]))
+                  for i, size in enumerate(sizes))
+    crossover = next((size for size, bk in rungs if bk == "pallas"), -1)
+    return {"sizes": list(sizes), "n_windows": n_windows,
+            "levels": len(workload), "ms": ms,
+            "rungs": rungs, "crossover": crossover}

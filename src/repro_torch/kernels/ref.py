@@ -25,20 +25,29 @@ _AREA = float(WINDOW * WINDOW)
 
 
 def integral_image_ref(img: torch.Tensor) -> torch.Tensor:
-    """Inclusive 2-D cumulative sum (unpadded), the port's pinned order."""
+    """Inclusive 2-D cumulative sum (unpadded), the port's pinned order;
+    works on (H, W) or (B, H, W)."""
     cols = torch.cumsum(img.to(torch.float32).double(), dim=-2).float()
     return torch.cumsum(cols.double(), dim=-1).float()
 
 
 def window_inv_sigma_ref(ii2: torch.Tensor, iic: torch.Tensor, ny: int,
                          nx: int, window: int = WINDOW) -> torch.Tensor:
-    """(..., ny, nx) grid of 1/sigma per stride-1 window origin."""
+    """(..., ny, nx) grid of 1/sigma per stride-1 window origin.  Corner
+    indices past the tables clamp to their last row / column, as jnp's
+    gathers do."""
     n = float(window * window)
+    h1, w1 = ii2.shape[-2:]
     ys = torch.arange(ny, device=ii2.device)[:, None]
     xs = torch.arange(nx, device=ii2.device)[None, :]
-    s2 = rect_sum(ii2, ys, xs, window, window)
-    mean = div_rn(rect_sum(iic, ys, xs, window, window), n)
-    return inv_sigma_of(div_rn(s2, n) - mean * mean)
+    y0, y1 = ys.clamp(max=h1 - 1), (ys + window).clamp(max=h1 - 1)
+    x0, x1 = xs.clamp(max=w1 - 1), (xs + window).clamp(max=w1 - 1)
+
+    def rect(t):
+        return t[..., y1, x1] - t[..., y0, x1] - t[..., y1, x0] + t[..., y0, x0]
+
+    mean = div_rn(rect(iic), n)
+    return inv_sigma_of(div_rn(rect(ii2), n) - mean * mean)
 
 
 def dense_stage_sums_ref(rect_xywh, rect_w, wc_threshold, left_val,

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on a card (``cuda`` marker): each kernel equal
-bit for bit to its plain version on the same inputs, and a small
+bit for bit to its plain version on the same inputs, a small
 ``detect_batch`` on the card equal to the port's CPU run, through every
-kernel.  Imports only torch, numpy and the port, so it runs where jax is
-not installed:
+kernel, and a small ``calibrated`` run on the card whose rects and
+capacities equal the CPU run's.  Imports only torch, numpy and the port,
+so it runs where jax is not installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -16,7 +17,7 @@ import torch
 from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade
 from repro_torch.core.training.data import render_scene
 from repro_torch.kernels import fused_head, haar_stage, integral_image, ops
-from repro_torch.kernels import packed_window
+from repro_torch.kernels import packed_window, window_variance
 
 SMALL = [3, 4, 5, 6, 8]
 
@@ -74,3 +75,44 @@ def test_detect_batch_on_card_equals_cpu(card, head):
     dense = "fused_head" if head == "fused" else "haar_stage"
     assert counts["integral_image"] > 0 and counts[dense] > 0
     assert counts["packed_window"] > 0
+
+
+@pytest.mark.cuda
+def test_window_variance_equals_plain_on_card(card):
+    rng = np.random.default_rng(5)
+    imgs = torch.as_tensor(rng.integers(0, 256, (3, 70, 90)),
+                           dtype=torch.float32, device=card)
+    _ii, ii2, iic = integral_image.sat_tables(imgs)
+    for ny, nx in ((47, 67), (50, 75)):     # the grid, and past its edge
+        got = window_variance.inv_sigma_grid(ii2, iic, ny, nx)
+        assert torch.equal(got, window_variance.inv_sigma_grid_plain(
+            ii2, iic, ny, nx))
+        assert torch.equal(got.cpu(), window_variance.inv_sigma_grid_plain(
+            ii2.cpu(), iic.cpu(), ny, nx))
+    pairs = torch.stack([ii2, iic], dim=1)    # strided (B, 2, H1, W1) slices
+    assert torch.equal(ops.window_inv_sigma_grid_batch(pairs, 47, 67),
+                       window_variance.inv_sigma_grid(ii2, iic, 47, 67))
+
+
+@pytest.mark.cuda
+def test_calibrated_on_card_equals_cpu(card):
+    casc = paper_shaped_cascade(0, stage_sizes=SMALL)
+    rng = np.random.default_rng(7)
+    imgs = [render_scene(rng, 64, 64, n_faces=1)[0] for _ in range(3)]
+    cfg = EngineConfig(mode="wave", step=1, min_neighbors=2, use_pallas=True,
+                       tail_backend="pallas")
+    ops.reset_launches()
+    cal = Detector(casc, cfg).calibrated(imgs[0], tune_tail=True,
+                                         tail_sizes=(64, 256), tune_head=True)
+    counts = ops.launches()
+    assert cal.device.type == "cuda"
+    for k in ("integral_image", "fused_head", "haar_stage", "packed_window"):
+        assert counts[k] > 0, k
+    on_cpu = Detector(casc, cfg, device="cpu")
+    cpu_cal = on_cpu.calibrated(imgs[0])
+    assert cal.config.capacity_fracs == cpu_cal.config.capacity_fracs
+    assert (cal.config.batch_capacity_fracs
+            == cpu_cal.config.batch_capacity_fracs)
+    for a, c in zip(cal.detect_batch(imgs, group=False),
+                    on_cpu.detect_batch(imgs, group=False)):
+        assert np.array_equal(a, c)

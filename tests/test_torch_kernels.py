@@ -27,7 +27,7 @@ from repro_torch.core import cascade as tcascade
 from repro_torch.core import integral as tintegral
 from repro_torch.kernels import native, ops, packed_tail
 from repro_torch.kernels import fused_head, haar_stage, integral_image
-from repro_torch.kernels import packed_window
+from repro_torch.kernels import packed_window, window_variance
 
 SMALL = [3, 4, 5, 6, 8]
 RCASC = rcascade.paper_shaped_cascade(0, stage_sizes=SMALL)
@@ -94,6 +94,78 @@ def test_sat_tables_plain_vs_reference(bhw):
     assert (ii[:, 0] == 0).all() and (ii[:, :, 0] == 0).all()
     assert np.allclose(ii[:, -1, -1].numpy(), imgs.sum(axis=(1, 2)),
                        rtol=1e-6)
+
+
+@pytest.mark.parametrize("hw", [(24, 24), (64, 128), (96, 96)])
+def test_integral_image_wrappers_vs_reference(hw):
+    imgs = _imgs(2, *hw, seed=hw[0])
+    batch = ops.integral_image_batch(_t(imgs))
+    assert torch.equal(batch, ops.integral_image_batch_ref(_t(imgs)))
+    for b in range(2):
+        want = np.asarray(rops.integral_image(jnp.asarray(imgs[b]),
+                                              use_kernel=False))
+        one = ops.integral_image(_t(imgs[b]))
+        np.testing.assert_allclose(one.numpy(), want, rtol=1e-6)
+        assert torch.equal(one, batch[b])
+        assert torch.equal(one, ops.integral_image_ref(_t(imgs[b])))
+    want = np.asarray(rops.integral_image_batch(jnp.asarray(imgs),
+                                                use_kernel=False))
+    np.testing.assert_allclose(batch.numpy(), want, rtol=1e-6)
+
+
+# ----------------------------------------------------------- D (1/sigma)
+def _ref_pair(h, w, seed):
+    img = _imgs(1, h, w, seed=seed)[0]
+    _ii, pair = rintegral.integral_images(jnp.asarray(img))
+    return pair
+
+
+# the sweep's shapes (benchmarks/bench_kernels.py), a single window, and a
+# grid reaching past the tables (the reference wrapper's edge padding)
+@pytest.mark.parametrize("h,w,ny,nx", [(24, 24, 1, 1), (64, 128, 41, 105),
+                                       (96, 96, 73, 73),
+                                       (128, 256, 105, 233),
+                                       (50, 60, 40, 52)])
+def test_window_inv_sigma_grid_plain_vs_reference(h, w, ny, nx):
+    pair = _ref_pair(h, w, seed=h + w)
+    got = ops.window_inv_sigma_grid(_t(pair), ny, nx)
+    assert got.shape == (ny, nx) and got.dtype == torch.float32
+    want = np.asarray(rops.window_inv_sigma_grid(pair, ny, nx,
+                                                 use_kernel=False))
+    np.testing.assert_allclose(got.numpy(), want, **INV_TOL)
+    oracle = np.asarray(rref.window_inv_sigma_grid_ref(pair, ny, nx))
+    np.testing.assert_allclose(got.numpy(), oracle, **INV_TOL)
+    # the twin repeats the (eager) reference oracle's arithmetic exactly
+    twin = ops.window_inv_sigma_grid_ref(_t(pair), ny, nx)
+    assert np.array_equal(twin.numpy(), oracle)
+
+
+def test_window_inv_sigma_grid_batch_equals_single():
+    pairs = np.stack([np.asarray(_ref_pair(70, 90, seed=s))
+                      for s in range(3)])
+    batch = ops.window_inv_sigma_grid_batch(_t(pairs), 47, 67)
+    for b in range(3):
+        assert torch.equal(batch[b],
+                           ops.window_inv_sigma_grid(_t(pairs[b]), 47, 67))
+    want = np.asarray(rref.window_inv_sigma_grid_batch_ref(
+        jnp.asarray(pairs), 47, 67))
+    np.testing.assert_allclose(batch.numpy(), want, **INV_TOL)
+    twin = ops.window_inv_sigma_grid_batch_ref(_t(pairs), 47, 67)
+    assert np.array_equal(twin.numpy(), want)
+    # the plain version reads the strided slices of the stacked pairs
+    strided = window_variance.inv_sigma_grid_plain(
+        _t(pairs)[:, 0], _t(pairs)[:, 1], 47, 67)
+    assert torch.equal(strided, batch)
+
+
+def test_window_inv_sigma_grid_vs_kernel_a_plain():
+    """Kernel D's plain version against kernel A's 1/sigma on one SAT: the
+    corner orders differ ((d - b) - (c - a) vs d - b - c + a), so they
+    agree to tolerance, not bit for bit."""
+    ii, ii2, iic = ops.sat_tables(_t(_imgs(2, 60, 80, seed=11)))
+    inv_a, _sums = fused_head.tile_pass(TCASC, 0, 1, ii, ii2, iic)
+    inv_d = window_variance.inv_sigma_grid(ii2, iic, 37, 57)
+    np.testing.assert_allclose(inv_d.numpy(), inv_a.numpy(), **INV_TOL)
 
 
 # ------------------------------------------------------------ A (fused)
@@ -213,9 +285,12 @@ def test_wrappers_refuse_other_devices_and_count_only_launches():
     ii, ii2, iic = ops.sat_tables(imgs)
     inv, _sums = fused_head.tile_pass(TCASC, 0, 1, ii, ii2, iic)
     haar_stage.stage_sums(TCASC, 0, ii, inv)
+    window_variance.inv_sigma_grid(ii2, iic, 7, 7)
     assert set(ops.launches().values()) == {0}    # plain versions: no launch
     with pytest.raises(ValueError, match="CUDA"):
         integral_image.sat_tables(imgs.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        window_variance.inv_sigma_grid(ii2.to("meta"), iic.to("meta"), 7, 7)
     with pytest.raises(ValueError, match="CUDA"):
         haar_stage.stage_sums(TCASC, 0, ii.to("meta"), inv.to("meta"))
 
