@@ -12,8 +12,13 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
    all at once);
 2. kernels: S, A, B, C and D each against its plain PyTorch version on
    the card, at the main path's shapes (level 0 of eight 480x640 images;
-   the first tail segment's real packed list), each timed with CUDA events
-   beside its plain version and its bound; D also against A's 1/sigma;
+   the first tail segment's real packed list), each kernel and library
+   call timed by its device time (``torch.profiler``), beside its plain
+   version (CUDA events) and its bound; D also against A's 1/sigma;
+   S also on non-integer input against the CPU, beside ``torch.cumsum``'s
+   time and at every pyramid level of the flush; C with and without the
+   compaction's live count (as the engine calls it) and in every lane
+   block of ``autotune.LANE_BLOCK_CANDIDATES``;
 3. main path: ``Detector.detect_batch`` on the paper-shaped 25-stage /
    2913-weak-classifier cascade over eight seeded 480x640 scenes, with the
    fused head and with the split head (equal rects), ``detect`` equal to
@@ -144,6 +149,32 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled_ms(torch, fn, reps: int, kernel: str = "") -> float:
+    """Mean device time per call of ``fn`` over ``reps`` calls (one warm-up
+    call first) of every kernel it launches whose name contains ``kernel``
+    (all of them by default), from ``torch.profiler``: the device's own
+    time, which a clock around back-to-back calls misses when launching a
+    call takes the host longer than the device takes to run it.  A profile
+    whose trace holds no device time is taken again; after three, the call
+    is timed with CUDA events instead, and a line says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and kernel in e.key)
+        if total > 0:
+            return total / reps / 1e3
+    print(f"chip_smoke: the profiler saw no device time of "
+          f"{kernel or 'the call'}; timed with CUDA events instead")
+    return cuda_ms(torch, fn, reps)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -266,6 +297,7 @@ def main() -> int:
     from repro_torch.kernels import native, ops
     from repro_torch.kernels import fused_head, haar_stage, packed_window
     from repro_torch.kernels import integral_image, window_variance
+    from repro_torch.kernels.autotune import LANE_BLOCK_CANDIDATES
 
     report: dict = {}
     # ------------------------------------------------------ 1. environment
@@ -315,16 +347,29 @@ def main() -> int:
     if n_diff:
         return fail(f"kernel S differs from the CPU pinned order in {n_diff}"
                     " entries")
+    # non-integer input: the float64 sums round, so only the serial order
+    # gives the CPU's bits
+    frac = torch.from_numpy((np.random.default_rng(SEED).random(
+        (BATCH, H, W)) * 255.0).astype(np.float32))
+    n_diff = sum(int((a.cpu() != b).sum()) for a, b in zip(
+        integral_image.sat_tables(frac.to(dev)),
+        integral_image.sat_tables_plain(frac)))
+    if n_diff:
+        return fail(f"kernel S differs from the CPU on non-integer input in "
+                    f"{n_diff} entries")
     lib_in = torch.stack([stack, (stack - 128) ** 2, stack - 128])
     n_px = BATCH * H * W
     n_tab = BATCH * (H + 1) * (W + 1)
+    s_ms = profiled_ms(torch, lambda: integral_image.sat_tables(stack), 20)
+    cumsum_ms = profiled_ms(torch, lambda: torch.cumsum(torch.cumsum(
+        lib_in, -2), -1), 20)
+    print(f"kernel S == CPU on integer and non-integer input; S {s_ms:.4f} "
+          f"ms, torch.cumsum {cumsum_ms:.4f} ms (x{cumsum_ms / s_ms:.2f}) at "
+          f"{BATCH}x{H}x{W} [{smi}]")
     row("integral_image (S)", "integral_image", "integral_image.cu",
-        "src/repro/kernels/integral_image.py:59", err_s,
-        cuda_ms(torch, lambda: integral_image.sat_tables(stack), 20),
+        "src/repro/kernels/integral_image.py:59", err_s, s_ms,
         cuda_ms(torch, lambda: integral_image.sat_tables_plain(stack), 3),
-        (4 * n_px + 3 * 4 * n_tab, 14 * n_px),
-        cuda_ms(torch, lambda: torch.cumsum(torch.cumsum(lib_in, -2), -1),
-                20))
+        (4 * n_px + 3 * 4 * n_tab, 14 * n_px), cumsum_ms)
 
     # A: the fused head's tile pass over S's tables, the dense prefix
     n_dense = 3
@@ -343,8 +388,8 @@ def main() -> int:
         "src/repro/kernels/fused_head.py:124",
         max(float((inv_a - inv_p).abs().max()),
             float((sums_a - sums_p).abs().max())),
-        cuda_ms(torch, lambda: fused_head.tile_pass(cascade, 0, n_dense, ii,
-                                                    ii2, iic), 10),
+        profiled_ms(torch, lambda: fused_head.tile_pass(
+            cascade, 0, n_dense, ii, ii2, iic), 10),
         cuda_ms(torch, lambda: fused_head.tile_pass_plain(
             cascade, 0, n_dense, ii, ii2, iic), 2),
         (sat_bytes + param_bytes * k_dense + 4 * n_win * (1 + n_dense),
@@ -373,8 +418,8 @@ def main() -> int:
     row("window_inv_sigma (D)", "window_variance", "window_variance.cu",
         "src/repro/kernels/window_variance.py:44",
         float((inv_d - inv_dp).abs().max()),
-        cuda_ms(torch, lambda: window_variance.inv_sigma_grid(ii2, iic, ny,
-                                                              nx), 20),
+        profiled_ms(torch, lambda: window_variance.inv_sigma_grid(
+            ii2, iic, ny, nx), 20),
         cuda_ms(torch, lambda: window_variance.inv_sigma_grid_plain(
             ii2, iic, ny, nx), 3),
         (2 * 4 * n_tab + 4 * n_win, 13 * n_win))
@@ -396,8 +441,8 @@ def main() -> int:
     k_b = kb[s_b + 1] - kb[s_b]
     row("haar_stage (B)", "haar_stage", "haar_stage.cu",
         "src/repro/kernels/haar_stage.py:71", err_b,
-        cuda_ms(torch, lambda: haar_stage.stage_sums(cascade, s_b, ii,
-                                                     inv_b), 10),
+        profiled_ms(torch, lambda: haar_stage.stage_sums(cascade, s_b, ii,
+                                                         inv_b), 10),
         cuda_ms(torch, lambda: haar_stage.dense_sums_plain(
             cascade, kb[s_b], kb[s_b + 1], ii, inv_b), 2),
         (4 * n_tab + 4 * n_win + param_bytes * k_b + 4 * n_win,
@@ -410,8 +455,18 @@ def main() -> int:
     head_fn, _tail_fn = det.batch_parts(hp, wp, BATCH)
     flush_in = det._stack_to_device(*det._pack_stack(imgs, hp, wp))
     alive_flat, inv_flat, ii_flat, head_counts = head_fn(*flush_in)
+    # S at every pyramid level of the flush: the small levels take a few
+    # microseconds of device time, less than the host needs to launch them,
+    # so the profiler (not a clock around back-to-back calls) times them
+    s_levels = [profiled_ms(torch, lambda x=torch.zeros(
+        (BATCH, lp.height, lp.width), device=dev): integral_image.sat_tables(
+        x), 5, "sat_chained") for lp in plan.levels]
+    print(f"kernel S per level ({len(s_levels)} levels, {BATCH} images, "
+          f"profiler device time): {[round(t, 4) for t in s_levels]} ms, "
+          f"{sum(s_levels):.4f} ms per flush")
+    report["sat_per_level_ms"] = s_levels
     seg = plan.tail_segments[0]
-    idx, _cnt = nonzero_static(alive_flat, seg.capacity)
+    idx, cnt = nonzero_static(alive_flat, seg.capacity)
     sel = idx.clamp(min=0)
     lay = plan.layout
     slot = (sel % plan.n_slots).cpu().numpy()
@@ -424,30 +479,53 @@ def main() -> int:
              lane(lay.sat_base_of_lvl[lvl]), lane(lay.sat_stride_of_lvl[lvl]),
              lane(lay.y_of_slot[slot]), lane(lay.x_of_slot[slot]))
     inv_c = inv_flat[sel].contiguous()
-    got = packed_window.stage_sums(cascade, seg.s0, seg.s1, ii_flat, *lanes,
-                                   inv_c)
-    want = packed_window.stage_sums_plain(cascade, seg.s0, seg.s1, ii_flat,
-                                          *lanes, inv_c)
-    torch.cuda.synchronize()
-    if diff(got, want):
-        errors.append(f"kernel C: {diff(got, want)}")
-    err_c = float((got - want).abs().max()) if got.numel() else 0.0
+    n_live = cnt.clamp(max=seg.capacity)      # as the engine's tail passes it
+    c_args = (cascade, seg.s0, seg.s1, ii_flat, *lanes, inv_c)
+    want = packed_window.stage_sums_plain(*c_args)
+    want_live = packed_window.stage_sums_plain(*c_args, n_live)
+    err_c = 0.0
+    for block in LANE_BLOCK_CANDIDATES:
+        for count, ref_out in ((None, want), (n_live, want_live)):
+            got = packed_window.stage_sums(*c_args, n_live=count,
+                                           lane_block=block)
+            torch.cuda.synchronize()
+            if diff(got, ref_out):
+                errors.append(f"kernel C {block} n_live="
+                              f"{'all' if count is None else 'live'}: "
+                              f"{diff(got, ref_out)}")
+            if got.numel():
+                err_c = max(err_c, float((got - ref_out).abs().max()))
     if errors:
         return fail("; ".join(errors))
     cap = inv_c.numel()
     k_c = kb[seg.s1] - kb[seg.s0]
+    n_run = seg.s1 - seg.s0
     n_valid = int((idx >= 0).sum())
-    print(f"packed list: {cap} lanes, {n_valid} valid, stages "
+    live = int(n_live)
+    print(f"packed list: {cap} lanes, {n_valid} valid ({live} live), stages "
           f"[{seg.s0}, {seg.s1}), {k_c} weak classifiers")
+
+    def c_work(lanes_read):
+        """Bytes and operations of C evaluating ``lanes_read`` lanes: the
+        SAT, those lanes' six arrays and the whole output."""
+        return (4 * ii_flat.numel() + 4 * 6 * lanes_read + param_bytes * k_c
+                + 4 * cap * n_run, lanes_read * 20 * k_c)
+
+    c_all = profiled_ms(torch, lambda: packed_window.stage_sums(*c_args), 5)
+    c_live = profiled_ms(torch, lambda: packed_window.stage_sums(
+        *c_args, n_live=n_live), 10)
+    b_all, _ = bound_ms(*c_work(cap))
+    b_live, _ = bound_ms(*c_work(live))
+    print(f"kernel C all {cap} lanes: {c_all:.4f} ms (bound {b_all:.4f}); "
+          f"{live} live lanes (n_live): {c_live:.4f} ms (bound "
+          f"{b_live:.4f}); x{c_all / c_live:.2f} [{smi}]")
     row("packed_window (C)", "packed_window", "packed_window.cu",
-        "src/repro/kernels/packed_window.py:95", err_c,
-        cuda_ms(torch, lambda: packed_window.stage_sums(
-            cascade, seg.s0, seg.s1, ii_flat, *lanes, inv_c), 5),
+        "src/repro/kernels/packed_window.py:95", err_c, c_live,
         cuda_ms(torch, lambda: packed_window.stage_sums_plain(
-            cascade, seg.s0, seg.s1, ii_flat, *lanes, inv_c), 1),
-        (4 * ii_flat.numel() + 4 * 6 * cap + param_bytes * k_c
-         + 4 * cap * (seg.s1 - seg.s0), cap * 20 * k_c))
-    report["packed_list"] = {"lanes": cap, "valid": n_valid,
+            *c_args, n_live), 1), c_work(live))
+    rows[-1].update(ms_all_lanes=c_all, bound_ms_all_lanes=b_all,
+                    lanes=cap, live_lanes=live)
+    report["packed_list"] = {"lanes": cap, "valid": n_valid, "live": live,
                              "stages": [seg.s0, seg.s1], "weak": k_c}
 
     # -------------------------------------------------------- 3. main path
@@ -572,8 +650,10 @@ def main() -> int:
           f"{prof['tail']['crossover']} ms {prof['tail']['ms']}")
     print(f"  head rungs {prof['head']['rungs']} crossover "
           f"{prof['head']['crossover']}")
-    print(f"  head_tiles {prof['head_tiles']} lane_block "
-          f"{prof['lane_block']} (the kernels ignore both)")
+    print(f"  head_tiles {prof['head_tiles']} (kernel A ignores it); "
+          f"lane_block {prof['lane_block']} of a race at "
+          f"{prof['lane']['size']} lanes, ms per candidate "
+          f"{dict(zip(map(str, prof['lane']['candidates']), prof['lane']['ms']))}")
     print(f"  batch_capacity_fracs {cal.config.batch_capacity_fracs}")
     print(f"  first tail segment: {cap_cal} lanes calibrated, {cap_def} "
           f"default")
@@ -606,6 +686,9 @@ def main() -> int:
              "head_crossover": prof["head"]["crossover"],
              "head_tiles": prof["head_tiles"],
              "lane_block": prof["lane_block"],
+             "lane_race": {"size": prof["lane"]["size"],
+                           "candidates": prof["lane"]["candidates"],
+                           "ms": prof["lane"]["ms"]},
              "batch_capacity_fracs": cal.config.batch_capacity_fracs,
              "densities": prof["densities"],
              "first_segment_lanes": {"calibrated": cap_cal,

@@ -15,7 +15,8 @@ heads and the packed tail on the port's CUDA kernels:
   ascending index, ``-1`` fill, an overflow flag) without a host sync;
 - each compacted tail segment runs through
   :func:`repro_torch.kernels.packed_tail.stage_sums` with the plan's
-  backend (``"pallas"`` = kernel C).
+  backend (``"pallas"`` = kernel C, launched in the plan's ``lane_block``)
+  and the compaction's live count, so kernel C skips the ``-1`` fill.
 
 ``detect_batch`` (packed strategy) shares one compaction across every
 image and pyramid level of a flush and reads the device once, for the
@@ -60,9 +61,10 @@ __all__ = ["EngineConfig", "LevelResult", "BatchResult", "Detector",
 class EngineConfig(NamedTuple):
     """The reference's ``EngineConfig``: same fields, same defaults, so
     plans and their keys are equal to the reference's.  ``interpret`` (a
-    Pallas switch) has no effect in the port; ``head_tile`` and
-    ``lane_block`` reach the plans but the CUDA kernels pick their own
-    thread blocks.  ``tail_backend="pallas"`` selects kernel C."""
+    Pallas switch) has no effect in the port; ``lane_block`` shapes kernel
+    C's launch (``packed_window.block_shape``), while ``head_tile`` reaches
+    the plans but kernel A picks its own thread block.
+    ``tail_backend="pallas"`` selects kernel C."""
     step: int = 1
     scale_factor: float = 1.2
     mode: str = "wave"             # 'dense' | 'wave'
@@ -241,12 +243,16 @@ class Detector:
                                           for t in src[1:])
                 cap = seg.capacity
                 lane_img = torch.arange(b, device=dev).repeat_interleave(cap)
+                # each image's live lanes are a prefix of its own row, so
+                # the flattened list has one live prefix only when b == 1
+                n_live = cnt[0].clamp(max=cap) if b == 1 else None
                 ss_run = packed_tail.stage_sums(
                     cascade, seg.s0, seg.s1, ii.reshape(b, -1), lane_img,
                     torch.zeros_like(lane_img),
                     torch.full_like(lane_img, stride), cur[1].reshape(-1),
                     cur[2].reshape(-1), cur[3].reshape(-1),
-                    backend=next(tail))
+                    backend=next(tail), n_live=n_live,
+                    lane_block=cfg.lane_block)
                 valid = cur[0]
                 for j, s in enumerate(range(seg.s0, seg.s1)):
                     valid = valid & (ss_run[j].reshape(b, cap) >= thr[s])
@@ -443,7 +449,9 @@ class Detector:
                 ss_run = packed_tail.stage_sums(
                     cascade, seg.s0, seg.s1, ii_flat, b_sel,
                     sat_base_of_lvl[lvl_sel], sat_stride_of_lvl[lvl_sel],
-                    y_sel, x_sel, inv_sel, backend=seg.backend)
+                    y_sel, x_sel, inv_sel, backend=seg.backend,
+                    n_live=cnt.clamp(max=seg.capacity),
+                    lane_block=plan.lane_block)
                 for j, s in enumerate(range(seg.s0, seg.s1)):
                     valid = valid & (ss_run[j] >= thr[s])
                     per_img = torch.zeros(batch, dtype=torch.int32,

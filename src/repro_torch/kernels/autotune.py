@@ -15,10 +15,13 @@ profiled image at every pyramid level:
 - :func:`measure_lane_block` races the packed tail's lane blocks on kernel
   C; it gives ``lane_block``.
 
-The port's CUDA kernels choose their own thread blocks and ignore these
-TPU tiles, so on the card every tile candidate times the same launch and
-the tile winners reflect noise.  The races and their schema stay so that
-plans stay equal to the reference's.
+Kernel C takes its launch shape from the lane block (``lane_block = (r,
+c)``: ``c`` threads per block, ``r`` lanes per thread; see
+``packed_window.block_shape``), so :func:`measure_lane_block` times a
+different launch per candidate.  Kernel A still chooses its own thread
+block and ignores the head tile, so on the card every head-tile candidate
+times the same launch and that winner reflects noise.  The races and their
+schema stay so that plans stay equal to the reference's.
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ def measure_head(cascade, workload, *, n_dense: int,
     ``workload`` is the calibrated ``(level_image, weight)`` list;
     ``n_dense`` the plan's dense-prefix stage count.  Per level it times
     the split head and the fused head at each candidate tile (the same
-    launches: the kernels ignore the tile) on the cascade's device.
+    launches: kernel A ignores the tile) on the cascade's device.
     Returns the reference's schema::
 
         {"levels": [(h, w, n_windows), ...],
@@ -136,8 +139,8 @@ def measure_lane_block(cascade, workload=None, *, size: int = 2048,
 
     Draws ``size`` lanes with ``packed_tail._build_workload``'s sampler and
     times kernel C (the ``"pallas"`` backend) evaluating the whole cascade
-    once per candidate (the same launch: the kernel ignores the block).
-    ``size`` should be the calibrated tail crossover.  Returns
+    launched in each candidate block.  ``size`` should be the calibrated
+    tail crossover.  Returns
     ``{"size", "n_windows", "candidates", "ms", "lane_block"}``.
     """
     from . import packed_tail
@@ -152,9 +155,9 @@ def measure_lane_block(cascade, workload=None, *, size: int = 2048,
     n_stages = cascade.n_stages
     candidates = tuple(tuple(c) for c in candidates)
     lanes = sample(int(size))
-    ms = [_best_ms(lambda: packed_tail.stage_sums(
-        cascade, 0, n_stages, ii_flat, *lanes, backend="pallas"),
-        device, repeats, inner) for _cand in candidates]
+    ms = [_best_ms(lambda cand=cand: packed_tail.stage_sums(
+        cascade, 0, n_stages, ii_flat, *lanes, backend="pallas",
+        lane_block=cand), device, repeats, inner) for cand in candidates]
     winner = candidates[int(np.argmin(ms))]
     return {"size": int(size), "n_windows": int(n_windows),
             "candidates": [tuple(c) for c in candidates], "ms": ms,

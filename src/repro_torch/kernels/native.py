@@ -166,6 +166,7 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+U64 = ctypes.c_ulonglong
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

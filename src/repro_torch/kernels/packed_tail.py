@@ -15,9 +15,10 @@ k), as in ``repro.kernels.packed_tail``:
     stage, shape (K, 3, cap) (plain torch);
 ``pallas``
     the hand-written blocked kernel backend: kernel C,
-    :func:`repro_torch.kernels.packed_window.stage_sums`, one CUDA thread
-    per lane looping the whole stage run.  The label is the reference's,
-    so configs and plans stay equal to its own.
+    :func:`repro_torch.kernels.packed_window.stage_sums`, each CUDA thread
+    looping the whole stage run over the lanes the plan's ``lane_block``
+    gives it.  The label is the reference's, so configs and plans stay
+    equal to its own.
 
 Out-of-range flat SAT indices clamp into the table, as
 ``jnp.take(mode="clip")`` does; valid lanes never produce one.
@@ -99,18 +100,26 @@ def _bulk_stage_sum(cascade: Cascade, ii_flat, img, base, stride, ys, xs,
 def stage_sums(cascade: Cascade, s0: int, s1: int, ii_flat: torch.Tensor,
                img: torch.Tensor, base: torch.Tensor, stride: torch.Tensor,
                ys: torch.Tensor, xs: torch.Tensor, inv_sigma: torch.Tensor,
-               *, backend: str = "bulk") -> torch.Tensor:
+               *, backend: str = "bulk", n_live: torch.Tensor | None = None,
+               lane_block=None) -> torch.Tensor:
     """(s1 - s0, cap) vote sums for stages ``[s0, s1)`` over a packed list.
 
     One call per tail segment: the caller applies stage thresholds between
     rows.  The lane arrays are integer tensors of one length ``cap``.
+    ``n_live`` (0-dim int64 on the device, or ``None``: all lanes) is the
+    compaction's live count: every backend gives 0 on lanes at or past it.
+    ``lane_block`` is the plan's block shape; only kernel C uses it.
     """
-    if backend in ("pallas", "gather"):
-        from . import packed_window
-        fn = (packed_window.stage_sums if backend == "pallas"
-              else packed_window.stage_sums_plain)
-        return fn(cascade, s0, s1, ii_flat, img.int(), base.int(),
-                  stride.int(), ys.int(), xs.int(), inv_sigma)
+    from . import packed_window
+    if backend == "pallas":
+        return packed_window.stage_sums(
+            cascade, s0, s1, ii_flat, img.int(), base.int(), stride.int(),
+            ys.int(), xs.int(), inv_sigma, n_live=n_live,
+            lane_block=lane_block)
+    if backend == "gather":
+        return packed_window.stage_sums_plain(
+            cascade, s0, s1, ii_flat, img.int(), base.int(), stride.int(),
+            ys.int(), xs.int(), inv_sigma, n_live)
     if backend != "bulk":
         raise ValueError(f"unknown packed-tail backend: {backend!r} "
                          f"(expected one of {BACKENDS})")
@@ -119,9 +128,10 @@ def stage_sums(cascade: Cascade, s0: int, s1: int, ii_flat: torch.Tensor,
     if s1 <= s0:
         return torch.zeros((0, inv_sigma.shape[0]), dtype=torch.float32,
                            device=inv_sigma.device)
-    return torch.stack([_bulk_stage_sum(cascade, ii_flat, *lanes, inv_sigma,
-                                        b[s], b[s + 1])
-                        for s in range(s0, s1)])
+    return packed_window.zero_past_live(
+        torch.stack([_bulk_stage_sum(cascade, ii_flat, *lanes, inv_sigma,
+                                     b[s], b[s + 1])
+                     for s in range(s0, s1)]), n_live)
 
 
 def select_backend(config, n_windows: int) -> str:

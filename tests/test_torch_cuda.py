@@ -18,6 +18,7 @@ from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade
 from repro_torch.core.training.data import render_scene
 from repro_torch.kernels import fused_head, haar_stage, integral_image, ops
 from repro_torch.kernels import packed_window, window_variance
+from repro_torch.kernels.autotune import LANE_BLOCK_CANDIDATES
 
 SMALL = [3, 4, 5, 6, 8]
 
@@ -116,3 +117,62 @@ def test_calibrated_on_card_equals_cpu(card):
     for a, c in zip(cal.detect_batch(imgs, group=False),
                     on_cpu.detect_batch(imgs, group=False)):
         assert np.array_equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bhw", [(2, 37, 70), (1, 1, 1), (3, 481, 33),
+                                 (1, 100, 1000)])
+def test_sat_kernel_equals_cpu_on_non_integer_input(card, bhw):
+    """Kernel S's chained scan keeps the serial order: the CPU's bits on
+    non-integer input, across several strips and chunks and ragged
+    edges."""
+    rng = np.random.default_rng(sum(bhw))
+    imgs = (rng.random(bhw) * 255.0).astype(np.float32)
+    got = integral_image.sat_tables(torch.from_numpy(imgs).to(card))
+    want = integral_image.sat_tables_plain(torch.from_numpy(imgs))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g.cpu(), w)
+
+
+def _tail_lanes(card, rng, n):
+    """Kernel C's test list over two 70x90 SATs: in-table windows and, at
+    random places, lanes whose footprint leaves the table (clamped)."""
+    imgs = torch.as_tensor(rng.integers(0, 256, (2, 70, 90)),
+                           dtype=torch.float32, device=card)
+    ii, _ii2, _iic = integral_image.sat_tables(imgs)
+    ys = rng.integers(0, 47, n)
+    far = rng.random(n) < 0.05
+    ys[far] = rng.integers(47, 10 ** 6, far.sum())
+    lanes = [torch.as_tensor(a, dtype=torch.int32, device=card) for a in (
+        rng.integers(0, 2, n), np.zeros(n), np.full(n, 91), ys,
+        rng.integers(0, 67, n))]
+    inv = torch.as_tensor(rng.random(n) * 0.05 + 0.01, dtype=torch.float32,
+                          device=card)
+    return ii.reshape(2, -1), lanes, inv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane_block",
+                         LANE_BLOCK_CANDIDATES + ((1, 128), (3, 96)))
+def test_packed_kernel_equals_plain_per_block_and_live_count(card,
+                                                             lane_block):
+    """Every candidate block, and blocks whose thread lanes do not fill
+    the kernel's groups; with and without a live count."""
+    casc = paper_shaped_cascade(0, stage_sizes=SMALL, device=card)
+    rng = np.random.default_rng(11)
+    cap = 5000
+    ii_flat, lanes, inv = _tail_lanes(card, rng, cap)
+    full = packed_window.stage_sums(casc, 0, 5, ii_flat, *lanes, inv,
+                                    lane_block=lane_block)
+    assert torch.equal(full, packed_window.stage_sums_plain(
+        casc, 0, 5, ii_flat, *lanes, inv))
+    for n in (0, 1, cap - 1, cap, cap + 7, 3001):
+        n_live = torch.tensor(n, dtype=torch.int64, device=card)
+        got = packed_window.stage_sums(casc, 0, 5, ii_flat, *lanes, inv,
+                                       n_live=n_live, lane_block=lane_block)
+        assert torch.equal(got, packed_window.stage_sums_plain(
+            casc, 0, 5, ii_flat, *lanes, inv, n_live)), n
+        m = min(n, cap)
+        assert torch.equal(got[:, :m], full[:, :m]), n
+        assert not got[:, m:].any(), n

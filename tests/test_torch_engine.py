@@ -23,7 +23,7 @@ from repro.core.training.data import render_scene
 from repro_torch.core import Detector, EngineConfig
 from repro_torch.core import cascade as tcascade
 from repro_torch.core.engine import nonzero_static, resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops, packed_window
 
 from helpers import all_pass_cascade
 
@@ -67,6 +67,40 @@ def test_port_detections_equal_reference(corpus, reference, backend, head):
     grouped = d.detect_batch(corpus)
     for want, got in zip(reference, grouped):
         assert np.array_equal(got, rnms.group_rectangles(want, 2))
+
+
+@pytest.mark.parametrize("lane_block", [(), (16, 128), (8, 256)])
+def test_plan_lane_block_and_live_count_reach_kernel_c(corpus, reference,
+                                                       monkeypatch,
+                                                       lane_block):
+    """Every kernel C call gets the plan's lane_block; the packed flush
+    and ``detect`` (one image) pass the compaction's live count, the vmap
+    strategy (several images' rows) none; rects stay the reference's."""
+    calls = []
+    real = packed_window.stage_sums
+
+    def spy(*args, n_live=None, lane_block=None, **kw):
+        calls.append((n_live, lane_block))
+        return real(*args, n_live=n_live, lane_block=lane_block, **kw)
+
+    monkeypatch.setattr(packed_window, "stage_sums", spy)
+    d = _port(use_pallas=True, tail_backend="pallas", lane_block=lane_block)
+    want_block = d.batch_plan(64, 64, 3).lane_block
+    assert want_block == (lane_block or autotune.DEFAULT_TILE)
+    for name, run in (
+            ("packed", lambda: d.detect_batch(corpus, group=False)),
+            ("detect", lambda: [d.detect(im, group=False) for im in corpus]),
+            ("vmap", lambda: d.detect_batch(corpus, group=False,
+                                            strategy="vmap"))):
+        calls.clear()
+        for want, got in zip(reference, run()):
+            assert np.array_equal(got, want), name
+        assert calls, name
+        for n_live, block in calls:
+            assert (block or autotune.DEFAULT_TILE) == want_block, name
+            assert (n_live is None) == (name == "vmap"), name
+            if n_live is not None:
+                assert n_live.dtype == torch.int64 and n_live.dim() == 0
 
 
 def test_oracle_path_equals_kernel_path(corpus, reference):

@@ -25,7 +25,7 @@ from repro.kernels import ref as rref
 
 from repro_torch.core import cascade as tcascade
 from repro_torch.core import integral as tintegral
-from repro_torch.kernels import native, ops, packed_tail
+from repro_torch.kernels import autotune, native, ops, packed_tail
 from repro_torch.kernels import fused_head, haar_stage, integral_image
 from repro_torch.kernels import packed_window, window_variance
 
@@ -94,6 +94,22 @@ def test_sat_tables_plain_vs_reference(bhw):
     assert (ii[:, 0] == 0).all() and (ii[:, :, 0] == 0).all()
     assert np.allclose(ii[:, -1, -1].numpy(), imgs.sum(axis=(1, 2)),
                        rtol=1e-6)
+
+
+@pytest.mark.parametrize("bhw", [(1, 1, 1), (2, 37, 70), (1, 33, 641)])
+def test_sat_tables_plain_is_the_serial_float64_order(bhw):
+    """The pinned order on non-integer input: numpy's sequential float64
+    cumsum down the columns, float32 entries, then along the rows."""
+    imgs = (np.random.default_rng(sum(bhw)).random(bhw) * 255.0
+            ).astype(np.float32)
+    got = integral_image.sat_tables_plain(_t(imgs))
+    cen = imgs - np.float32(128.0)
+    for g, x in zip(got, (imgs, cen * cen, cen)):
+        cols = np.cumsum(x.astype(np.float64), axis=1).astype(np.float32)
+        rows = np.cumsum(cols.astype(np.float64), axis=2).astype(np.float32)
+        want = np.pad(rows, ((0, 0), (1, 0), (1, 0)))
+        assert g.dtype == torch.float32
+        assert np.array_equal(g.numpy(), want)
 
 
 @pytest.mark.parametrize("hw", [(24, 24), (64, 128), (96, 96)])
@@ -260,6 +276,54 @@ def test_packed_tail_backends_exact_vs_reference(packed_inputs, backend):
                                  *[_t(a).long() for a in lanes], _t(inv),
                                  backend=backend)
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n_live", [0, 1, 699, 700, 701, 10 ** 9])
+@pytest.mark.parametrize("backend", ["gather", "bulk", "pallas"])
+def test_packed_tail_backends_zero_past_live(packed_inputs, backend,
+                                             n_live):
+    """With a live count (cap = 700) every backend gives the no-count
+    call's bits on the live prefix and 0 past it."""
+    ii_flat, lanes, inv = packed_inputs
+    args = (TCASC, 1, 4, _t(ii_flat), *[_t(a).long() for a in lanes],
+            _t(inv))
+    full = packed_tail.stage_sums(*args, backend=backend)
+    got = packed_tail.stage_sums(*args, backend=backend,
+                                 n_live=torch.tensor(n_live))
+    m = min(n_live, full.shape[1])
+    assert got.shape == full.shape
+    assert torch.equal(got[:, :m], full[:, :m])
+    assert not got[:, m:].any()
+
+
+def test_kernel_c_block_shapes():
+    """lane_block (r, c) -> (lanes per thread, threads per block)."""
+    assert packed_window.block_shape(None) == packed_window.block_shape(
+        autotune.DEFAULT_TILE)
+    want = {(8, 128): (8, 128), (16, 128): (16, 128), (8, 256): (8, 256)}
+    assert {c: packed_window.block_shape(c)
+            for c in autotune.LANE_BLOCK_CANDIDATES} == want
+    assert packed_window.block_shape((3, 100)) == (3, 96)
+    assert packed_window.block_shape((64, 4096)) == (64, 1024)
+    assert packed_window.block_shape((1, 1)) == (1, 32)
+
+
+def test_measure_lane_block_launches_each_candidate(monkeypatch):
+    seen = []
+    real = packed_window.stage_sums
+
+    def spy(*args, lane_block=None, **kw):
+        seen.append(lane_block)
+        return real(*args, lane_block=lane_block, **kw)
+
+    monkeypatch.setattr(packed_window, "stage_sums", spy)
+    out = autotune.measure_lane_block(TCASC, size=32, repeats=1, inner=1)
+    cands = [tuple(c) for c in autotune.LANE_BLOCK_CANDIDATES]
+    assert out["candidates"] == cands and len(out["ms"]) == len(cands)
+    assert out["lane_block"] in cands
+    assert set(seen) == set(cands)
+    for c in cands:        # a warm-up call and the timed one, per candidate
+        assert seen.count(c) == 2
 
 
 def test_packed_plain_clamps_out_of_range_lanes(packed_inputs):
