@@ -16,22 +16,29 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
    call timed by its device time (``torch.profiler``), beside its plain
    version (CUDA events) and its bound; D also against A's 1/sigma;
    S also on non-integer input against the CPU, beside ``torch.cumsum``'s
-   time and at every pyramid level of the flush; C with and without the
-   compaction's live count (as the engine calls it) and in every lane
-   block of ``autotune.LANE_BLOCK_CANDIDATES``;
+   time and at every pyramid level of the flush; A and B in every head
+   tile of ``autotune.HEAD_TILE_CANDIDATES`` (each its own launch shape,
+   timed per tile; B also on the cascade's largest stage, and A's sums
+   against B's); C with and without the compaction's live count (as the
+   engine calls it) and in every lane block of
+   ``autotune.LANE_BLOCK_CANDIDATES``;
 3. main path: ``Detector.detect_batch`` on the paper-shaped 25-stage /
    2913-weak-classifier cascade over eight seeded 480x640 scenes, with the
    fused head and with the split head (equal rects), ``detect`` equal to
-   the batch per image, no program rebuilt on a repeat flush; then ms per
-   flush and images per second; then the public kernel API
+   the batch per image, no program rebuilt on a repeat flush; a flush per
+   head and head tile launches A or B in that tile's block with the same
+   rects; then ms per flush and images per second; then the public kernel
+   API
    (``ops.integral_image(_batch)``, ``ops.window_inv_sigma_grid(_batch)``)
    at the kernel sweep's shapes and the main path's, against its twins;
 4. card vs CPU: the pretrained 3-stage cascade on seeded 240x320 face
    scenes gives the same rects on the card as the port's own CPU run;
 5. calibration: ``Detector.calibrated(tune_tail=True, tune_head=True)``
    on the flush image with the most survivors at the main path's width;
-   the calibrated flush gives the default flush's rects, without overflow
-   and without a rebuild on a repeat; ms per flush beside the default's.
+   the head-tile race's ms per candidate; the calibrated flush gives the
+   default flush's rects, without overflow and without a rebuild on a
+   repeat, and launches its dense kernels in the block of its plan's
+   ``head_tile``; ms per flush beside the default's.
 
 Every path driven on the card runs with the launch counts set to 0 just
 before it and read just after: each must have launched the kernels of its
@@ -175,12 +182,36 @@ def profiled_ms(torch, fn, reps: int, kernel: str = "") -> float:
     return cuda_ms(torch, fn, reps)
 
 
+def ptxas_entries(log: str) -> list:
+    """``[{"entry", "registers", "spill_stores", "spill_loads"}, ...]`` per
+    kernel of an ``nvcc -Xptxas -v`` report."""
+    import re
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            out.append({"entry": m.group(1)})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and out:
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = map(int,
+                                                                  m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def tile_label(tile) -> str:
+    return f"{tile[0]}x{tile[1]}"
 
 
 def scenes(render_scene, n: int, h: int, w: int, seed: int, **kw):
@@ -297,7 +328,10 @@ def main() -> int:
     from repro_torch.kernels import native, ops
     from repro_torch.kernels import fused_head, haar_stage, packed_window
     from repro_torch.kernels import integral_image, window_variance
-    from repro_torch.kernels.autotune import LANE_BLOCK_CANDIDATES
+    from repro_torch.kernels.autotune import (DEFAULT_TILE,
+                                              HEAD_TILE_CANDIDATES,
+                                              LANE_BLOCK_CANDIDATES)
+    from repro_torch.kernels.haar_stage import head_block_shape
 
     report: dict = {}
     # ------------------------------------------------------ 1. environment
@@ -308,10 +342,13 @@ def main() -> int:
     built = native.build_all()
     print(f"kernel build: {built['seconds']:.1f} s for "
           f"{len(built['built'])} sources")
-    for src, log in built["ptxas"].items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}")
+    report["ptxas"] = {src: ptxas_entries(log)
+                       for src, log in built["ptxas"].items()}
+    for src, entries in report["ptxas"].items():
+        for e in entries:
+            print(f"  {src}: {e['entry']}: {e.get('registers')} registers, "
+                  f"spill stores {e.get('spill_stores')} loads "
+                  f"{e.get('spill_loads')} bytes")
     report["card"] = smi
     report["build_s"] = built["seconds"]
 
@@ -371,29 +408,47 @@ def main() -> int:
         cuda_ms(torch, lambda: integral_image.sat_tables_plain(stack), 3),
         (4 * n_px + 3 * 4 * n_tab, 14 * n_px), cumsum_ms)
 
-    # A: the fused head's tile pass over S's tables, the dense prefix
+    # A: the fused head's tile pass over S's tables, the dense prefix, in
+    # every head tile (each its own launch shape); the row's ms is the
+    # default tile's
     n_dense = 3
     kb = cascade.bounds
     k_dense = kb[n_dense]
-    inv_a, sums_a = fused_head.tile_pass(cascade, 0, n_dense, ii, ii2, iic)
     inv_p, sums_p = fused_head.tile_pass_plain(cascade, 0, n_dense, ii, ii2,
                                                iic)
-    torch.cuda.synchronize()
-    errors = [f"kernel A {what}: {d}" for what, d in (
-        ("1/sigma", diff(inv_a, inv_p)), ("sums", diff(sums_a, sums_p))) if d]
-    n_win = inv_a.numel()
+    errors, err_a, a_ms, a_blocks = [], 0.0, {}, {}
+    for tile in HEAD_TILE_CANDIDATES:
+        label = tile_label(tile)
+        inv_t, sums_t = fused_head.tile_pass(cascade, 0, n_dense, ii, ii2,
+                                             iic, tile=tile)
+        torch.cuda.synchronize()
+        a_blocks[label] = fused_head.KERNEL.last_block
+        if a_blocks[label] != head_block_shape(tile):
+            errors.append(f"kernel A {label} launched in {a_blocks[label]}")
+        errors += [f"kernel A {label} {what}: {d}" for what, d in (
+            ("1/sigma", diff(inv_t, inv_p)), ("sums", diff(sums_t, sums_p)))
+            if d]
+        err_a = max(err_a, float((inv_t - inv_p).abs().max()),
+                    float((sums_t - sums_p).abs().max()))
+        a_ms[label] = profiled_ms(
+            torch, lambda tile=tile: fused_head.tile_pass(
+                cascade, 0, n_dense, ii, ii2, iic, tile=tile), 10)
+        if tile == DEFAULT_TILE:
+            inv_a, sums_a = inv_t, sums_t
+    n_win = inv_p.numel()
     sat_bytes = 3 * 4 * n_tab
     param_bytes = 72
+    print(f"kernel A per head tile (ms, block): "
+          f"{ {k: (round(v, 4), a_blocks[k]) for k, v in a_ms.items()} } "
+          f"[{smi}]")
     row("fused_head (A)", "fused_head", "fused_head.cu",
-        "src/repro/kernels/fused_head.py:124",
-        max(float((inv_a - inv_p).abs().max()),
-            float((sums_a - sums_p).abs().max())),
-        profiled_ms(torch, lambda: fused_head.tile_pass(
-            cascade, 0, n_dense, ii, ii2, iic), 10),
+        "src/repro/kernels/fused_head.py:124", err_a,
+        a_ms[tile_label(DEFAULT_TILE)],
         cuda_ms(torch, lambda: fused_head.tile_pass_plain(
             cascade, 0, n_dense, ii, ii2, iic), 2),
         (sat_bytes + param_bytes * k_dense + 4 * n_win * (1 + n_dense),
          n_win * (13 + 20 * k_dense)))
+    rows[-1].update(ms_by_tile=a_ms, block_by_tile=a_blocks)
 
     # D: the public API's 1/sigma grid over S's tables of level 0
     ny, nx = H - 23, W - 23
@@ -424,29 +479,50 @@ def main() -> int:
             ii2, iic, ny, nx), 3),
         (2 * 4 * n_tab + 4 * n_win, 13 * n_win))
 
-    # B: one dense stage over S's SAT and the split head's 1/sigma grid
+    # B: the dense stages and the cascade's largest stage over S's SAT and
+    # the split head's 1/sigma grid, in every head tile; the dense stages'
+    # sums equal A's (fused == split); timed on stage 2
     inv_b = window_inv_sigma((ii2, iic), torch.arange(ny, device=dev)[:, None],
                              torch.arange(nx, device=dev)[None, :], 24)
     if diff(inv_b, inv_a):
         errors.append(f"split-head 1/sigma vs kernel A: {diff(inv_b, inv_a)}")
-    err_b = 0.0
-    for s in range(n_dense):
-        got = haar_stage.stage_sums(cascade, s, ii, inv_b)
-        want = haar_stage.dense_sums_plain(cascade, kb[s], kb[s + 1], ii,
-                                           inv_b)
-        if diff(got, want):
-            errors.append(f"kernel B stage {s}: {diff(got, want)}")
-        err_b = max(err_b, float((got - want).abs().max()))
+    big = max(range(cascade.n_stages), key=lambda s: kb[s + 1] - kb[s])
+    wants = {s: haar_stage.dense_sums_plain(cascade, kb[s], kb[s + 1], ii,
+                                            inv_b)
+             for s in (*range(n_dense), big)}
     s_b = 2
+    err_b, b_ms, b_blocks = 0.0, {}, {}
+    for tile in HEAD_TILE_CANDIDATES:
+        label = tile_label(tile)
+        for s, want in wants.items():
+            got = haar_stage.stage_sums(cascade, s, ii, inv_b, tile=tile)
+            torch.cuda.synchronize()
+            if diff(got, want):
+                errors.append(f"kernel B {label} stage {s}: "
+                              f"{diff(got, want)}")
+            if s < n_dense and diff(got, sums_a[:, s]):
+                errors.append(f"kernel B {label} stage {s} vs kernel A: "
+                              f"{diff(got, sums_a[:, s])}")
+            err_b = max(err_b, float((got - want).abs().max()))
+        b_blocks[label] = haar_stage.KERNEL.last_block
+        if b_blocks[label] != head_block_shape(tile):
+            errors.append(f"kernel B {label} launched in {b_blocks[label]}")
+        b_ms[label] = profiled_ms(
+            torch, lambda tile=tile: haar_stage.stage_sums(
+                cascade, s_b, ii, inv_b, tile=tile), 10)
     k_b = kb[s_b + 1] - kb[s_b]
+    print(f"kernel B stage {s_b} per head tile (ms, block): "
+          f"{ {k: (round(v, 4), b_blocks[k]) for k, v in b_ms.items()} }; "
+          f"stages {list(wants)} ({kb[big + 1] - kb[big]} classifiers in "
+          f"stage {big}) equal to the plain version [{smi}]")
     row("haar_stage (B)", "haar_stage", "haar_stage.cu",
         "src/repro/kernels/haar_stage.py:71", err_b,
-        profiled_ms(torch, lambda: haar_stage.stage_sums(cascade, s_b, ii,
-                                                         inv_b), 10),
+        b_ms[tile_label(DEFAULT_TILE)],
         cuda_ms(torch, lambda: haar_stage.dense_sums_plain(
             cascade, kb[s_b], kb[s_b + 1], ii, inv_b), 2),
         (4 * n_tab + 4 * n_win + param_bytes * k_b + 4 * n_win,
          n_win * 20 * k_b))
+    rows[-1].update(ms_by_tile=b_ms, block_by_tile=b_blocks)
 
     # C: the first tail segment's real packed list of the main-path flush
     det = Detector(cascade, cfg, device=DEVICE)
@@ -586,6 +662,24 @@ def main() -> int:
     if det.program_builds != builds:
         return fail("a repeat flush rebuilt a program")
     print(f"raw detections per image: {n_raw}")
+    # the plan's head_tile reaches the launch: a flush per head and tile
+    # launches its dense kernel in that tile's block, with the same rects
+    for tile in HEAD_TILE_CANDIDATES:
+        for head, mod in (("fused", fused_head), ("split", haar_stage)):
+            d = Detector(cascade, cfg._replace(head_mode=head, head_tile=tile),
+                         device=DEVICE)
+            mod.KERNEL.last_block = None
+            rects = d.detect_batch(imgs, group=False)
+            if mod.KERNEL.last_block != head_block_shape(tile):
+                return fail(f"{head} flush in head tile {tile} launched in "
+                            f"{mod.KERNEL.last_block}")
+            if any(not np.array_equal(a, b)
+                   for a, b in zip(rects, fused_rects)):
+                return fail(f"{head} flush in head tile {tile} changed the "
+                            "rects")
+    shapes = [head_block_shape(t) for t in HEAD_TILE_CANDIDATES]
+    print(f"head tiles {list(HEAD_TILE_CANDIDATES)}: fused and split flushes "
+          f"launched in blocks {shapes}, rects unchanged")
     flush = {}
     for label, d in (("fused", det), ("split", det_split)):
         t0 = time.perf_counter()
@@ -650,17 +744,39 @@ def main() -> int:
           f"{prof['tail']['crossover']} ms {prof['tail']['ms']}")
     print(f"  head rungs {prof['head']['rungs']} crossover "
           f"{prof['head']['crossover']}")
-    print(f"  head_tiles {prof['head_tiles']} (kernel A ignores it); "
-          f"lane_block {prof['lane_block']} of a race at "
+    tile_ms = prof["head"]["tile_ms"]
+    print(f"  head-tile race, fused device ms per level: {tile_ms}; totals "
+          f"{ {k: round(sum(v), 4) for k, v in tile_ms.items()} }; winner "
+          f"head_tiles {prof['head_tiles']}")
+    # the chosen tile beside phase 2's profiled A times at level 0
+    a_tile_ms = next(r for r in rows if r["name"] == "fused_head (A)")[
+        "ms_by_tile"]
+    fastest = min(a_tile_ms, key=a_tile_ms.get)
+    print(f"  kernel A at level 0 (phase 2): chosen "
+          f"{tile_label(prof['head_tiles'])} "
+          f"{a_tile_ms[tile_label(prof['head_tiles'])]:.4f} ms, fastest "
+          f"{fastest} {a_tile_ms[fastest]:.4f} ms")
+    print(f"  lane_block {prof['lane_block']} of a race at "
           f"{prof['lane']['size']} lanes, ms per candidate "
           f"{dict(zip(map(str, prof['lane']['candidates']), prof['lane']['ms']))}")
     print(f"  batch_capacity_fracs {cal.config.batch_capacity_fracs}")
     print(f"  first tail segment: {cap_cal} lanes calibrated, {cap_def} "
           f"default")
+    dense_kernels = (fused_head.KERNEL, haar_stage.KERNEL)
+    for k in dense_kernels:
+        k.last_block = None
     try:
         cal_rects = cal.detect_batch(imgs, group=False)
     except RuntimeError as e:
         return fail(f"calibrated flush: {e}")
+    cal_block = head_block_shape(cal_plan.head_tile)
+    blocks = [k.last_block for k in dense_kernels if k.last_block]
+    if not blocks or any(b != cal_block for b in blocks):
+        return fail(f"calibrated flush launched its dense kernels in "
+                    f"{blocks}, not head_block_shape({cal_plan.head_tile}) "
+                    f"= {cal_block}")
+    print(f"  calibrated flush: head_tile {cal_plan.head_tile} launched in "
+          f"block {cal_block}")
     for i, (a, b) in enumerate(zip(cal_rects, fused_rects)):
         if not np.array_equal(a, b):
             return fail(f"calibrated and default flushes differ on image {i}")
@@ -685,6 +801,9 @@ def main() -> int:
              "head_rungs": prof["head"]["rungs"],
              "head_crossover": prof["head"]["crossover"],
              "head_tiles": prof["head_tiles"],
+             "head_tile_ms": prof["head"]["tile_ms"],
+             "head_tile_block": cal_block,
+             "head_tile_a_level0_ms": a_tile_ms,
              "lane_block": prof["lane_block"],
              "lane_race": {"size": prof["lane"]["size"],
                            "candidates": prof["lane"]["candidates"],

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Kernel S and kernel C of the port at shapes beside the main path's, on
+"""Kernels S, C, A and B of the port at shapes beside the main path's, on
 one GPU: what their designs trade, as device time (``torch.profiler``).
 
-    python3 scripts/port_kernel_probe.py
+    python3 scripts/port_kernel_probe.py [--only sat packed race dense]
 
 - S (``integral_image.sat_tables``) at shapes that separate its two serial
   chains: one strip (the column chain over 32-row chunks), one chunk (the
@@ -14,6 +14,11 @@ one GPU: what their designs trade, as device time (``torch.profiler``).
   ``EXTRA_BLOCKS``; each checked bit for bit against the default block.
 - ``autotune.measure_lane_block`` at 2048, 16384 and 131072 lanes (whole
   cascade): how a block of r x c lanes fares on short lists.
+- A (``fused_head.tile_pass``, the dense prefix) and B
+  (``haar_stage.stage_sums``, each dense stage) at every pyramid level of
+  the main path's flush, in each head tile of
+  ``autotune.HEAD_TILE_CANDIDATES``: level 0 and the sum over the flush's
+  levels, each checked bit for bit against the default tile.
 
 Prints the card's name and power limit and writes the same as JSON to
 ``chiprun_out/port_kernel_probe.json``.  Needs a CUDA card.
@@ -30,9 +35,59 @@ S_SHAPES = ((1, 1, 1), (1, 32, 32), (1, 32, 64), (1, 32, 640), (1, 480, 32),
             (1, 480, 640), (8, 26, 35), (8, 480, 640))
 EXTRA_BLOCKS = ((4, 256), (2, 256), (1, 128))   # beside the candidates
 RACE_SIZES = (2048, 16384, 131072)
+PARTS = ("sat", "packed", "race", "dense")
+
+
+def probe_dense(torch, cs, cascade, plan, stack, n_dense: int) -> list:
+    """A and B per head tile at every level of the flush (see the module's
+    docstring)."""
+    from repro_torch.core.pyramid import downscale_indices
+    from repro_torch.kernels import autotune, fused_head, haar_stage
+    from repro_torch.kernels import integral_image
+    dev = stack.device
+    levels = []
+    for lp in plan.levels:
+        ys = torch.as_tensor(downscale_indices(plan.hp, lp.height), device=dev)
+        xs = torch.as_tensor(downscale_indices(plan.wp, lp.width), device=dev)
+        levels.append(integral_image.sat_tables(
+            stack[:, ys[:, None], xs[None, :]].contiguous()))
+    want = fused_head.tile_pass(cascade, 0, n_dense, *levels[0])
+    rows = []
+    for tile in autotune.HEAD_TILE_CANDIDATES:
+        shape = haar_stage.head_block_shape(tile)
+        got = fused_head.tile_pass(cascade, 0, n_dense, *levels[0], tile=tile)
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        equal = equal and all(torch.equal(haar_stage.stage_sums(
+            cascade, s, levels[0][0], want[0], tile=tile), want[1][:, s])
+            for s in range(n_dense))
+        a_ms, b_ms = [], []
+        for t in levels:
+            a_ms.append(cs.profiled_ms(
+                torch, lambda t=t: fused_head.tile_pass(
+                    cascade, 0, n_dense, *t, tile=tile), 5, "fused_tiles"))
+            inv = fused_head.tile_pass(cascade, 0, 1, *t)[0]
+            b_ms.append([cs.profiled_ms(
+                torch, lambda t=t, s=s, inv=inv: haar_stage.stage_sums(
+                    cascade, s, t[0], inv, tile=tile), 5, "stage_sums")
+                for s in range(n_dense)])
+        row = {"tile": tile, "block": shape, "equal": equal,
+               "a_level0_ms": a_ms[0], "a_flush_ms": sum(a_ms),
+               "b_level0_stage2_ms": b_ms[0][2],
+               "b_flush_ms": sum(map(sum, b_ms)),
+               "a_ms_per_level": a_ms, "b_ms_per_level": b_ms}
+        rows.append(row)
+        print(f"A/B {tile} block {shape}: A level 0 {a_ms[0]:.4f} ms, "
+              f"flush {sum(a_ms):.4f} ms; B level 0 stage 2 "
+              f"{b_ms[0][2]:.4f} ms, flush {row['b_flush_ms']:.4f} ms; "
+              f"== default {equal}")
+    return rows
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS)
+    parts = ap.parse_args().only
     sys.stdout.reconfigure(line_buffering=True)
     import numpy as np
     import torch
@@ -50,10 +105,11 @@ def main() -> int:
     print(f"card: {smi}")
     native.build_all()
     dev = torch.device("cuda")
-    out: dict = {"card": smi, "sat": [], "packed": [], "race": []}
+    out: dict = {"card": smi, "sat": [], "packed": [], "race": [],
+                 "dense": []}
 
     rng = np.random.default_rng(cs.SEED)
-    for shape in S_SHAPES:
+    for shape in S_SHAPES if "sat" in parts else ():
         x = torch.from_numpy((rng.random(shape) * 255.0).astype(np.float32))
         got = integral_image.sat_tables(x.to(dev))
         equal = all(torch.equal(a.cpu(), b) for a, b in
@@ -68,6 +124,10 @@ def main() -> int:
     det = Detector(cascade, cfg)
     hp, wp = det._bucket_hw(cs.H, cs.W)
     plan = det.batch_plan(hp, wp, cs.BATCH)
+    if "dense" in parts:
+        stack = torch.from_numpy(np.stack(imgs)).to(dev)
+        out["dense"] = probe_dense(torch, cs, cascade, plan, stack,
+                                   plan.dense_prefix)
     head_fn, _tail_fn = det.batch_parts(hp, wp, cs.BATCH)
     alive_flat, inv_flat, ii_flat, _counts = head_fn(
         *det._stack_to_device(*det._pack_stack(imgs, hp, wp)))
@@ -89,7 +149,8 @@ def main() -> int:
     n_live = cnt.clamp(max=seg.capacity)
     want = packed_window.stage_sums(*args, n_live=n_live)
     print(f"C list: {seg.capacity} lanes, {int(n_live)} live")
-    for block in autotune.LANE_BLOCK_CANDIDATES + EXTRA_BLOCKS:
+    for block in (autotune.LANE_BLOCK_CANDIDATES + EXTRA_BLOCKS
+                  if "packed" in parts else ()):
         equal = torch.equal(packed_window.stage_sums(
             *args, n_live=n_live, lane_block=block), want)
         live = cs.profiled_ms(torch, lambda: packed_window.stage_sums(
@@ -102,7 +163,7 @@ def main() -> int:
               f"(x{full / live:.2f}), == default block {equal}")
 
     cands = autotune.LANE_BLOCK_CANDIDATES + ((1, 256),)
-    for size in RACE_SIZES:
+    for size in RACE_SIZES if "race" in parts else ():
         r = autotune.measure_lane_block(cascade, size=size, candidates=cands)
         out["race"].append({"size": size, "candidates": r["candidates"],
                             "ms": r["ms"]})

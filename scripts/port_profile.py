@@ -9,9 +9,14 @@ strategy) on the main path's workload as ``chip_smoke.main_path_workload``
 defines it (the paper-shaped 25-stage cascade, 8 seeded 480x640 scenes,
 the engine config), then traces ``--flushes`` flushes
 with ``torch.profiler`` and prints, per flush: the host wall time, the
-summed device time of every kernel and copy (from the trace), the device's
-idle share (1 - device time / wall time; device work does not overlap
-itself on one stream), and the operations that took the most device time.
+summed device time of every kernel and copy (from the trace), the device
+operations launched, the device's idle share (1 - device time / wall
+time; device work does not overlap itself on one stream), and the
+operations that took the most device time.  It then splits the flush into
+its two halves (``Detector.batch_parts``: the per-level dense heads, then
+the shared compactions and the packed tail) and gives each one's host wall
+time, device time and device operations; the rest of the flush's wall
+time is the host's packing, copies and decode.
 ``--calibrated`` profiles instead the calibrated detector of
 ``chip_smoke.py``'s phase 5 (``chip_smoke.calibrate_main_path``: measured
 capacities, tail and head ladders; about a minute of racing first), whose
@@ -40,7 +45,6 @@ def main() -> int:
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA card", file=sys.stderr)
@@ -82,22 +86,28 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.flushes
     # device-side events only (kernels, copies): a CPU op's entry repeats
     # the time of the kernels it launched
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    events.sort(key=lambda e: -e.self_device_time_total)
+    events = device_events(prof)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 \
         / args.flushes
     top = [{"name": e.key, "calls_per_flush": e.count / args.flushes,
             "device_ms_per_flush": e.self_device_time_total / 1e3
             / args.flushes} for e in events[:15]]
+    ops_per_flush = sum(e.count for e in events) / args.flushes
+    parts = halves(torch, det, imgs, args.flushes)
     out = {"card": smi, "head": label, "flushes": args.flushes,
            "wall_ms_per_flush": wall_ms,
            "device_ms_per_flush": device_ms,
-           "idle_share": 1.0 - device_ms / wall_ms, "top": top}
+           "device_ops_per_flush": ops_per_flush,
+           "idle_share": 1.0 - device_ms / wall_ms, "halves": parts,
+           "top": top}
     print(f"card: {smi}")
     print(f"{label}: wall {wall_ms:.2f} ms per flush, device "
-          f"{device_ms:.2f} ms, idle share {out['idle_share']:.3f}")
+          f"{device_ms:.2f} ms, {ops_per_flush:.0f} device operations, "
+          f"idle share {out['idle_share']:.3f}")
+    for name, p in parts.items():
+        print(f"  {name}: wall {p['wall_ms']:.2f} ms, device "
+              f"{p['device_ms']:.2f} ms, {p['device_ops']:.0f} device "
+              f"operations")
     for t in top:
         print(f"  {t['device_ms_per_flush']:9.3f} ms  "
               f"{t['calls_per_flush']:7.1f} calls  {t['name'][:90]}")
@@ -110,6 +120,49 @@ def main() -> int:
     (dest / f"port_profile_{label}.json").write_text(
         json.dumps(out, indent=1))
     return 0
+
+
+def device_events(prof) -> list:
+    """The trace's device-side events (kernels, copies), most device time
+    first: a CPU op's entry repeats the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return events
+
+
+def halves(torch, det, imgs, reps: int) -> dict:
+    """Host wall ms (clock around ``reps`` calls, device drained before
+    and after), device ms and device operations per call of the flush's
+    head half and tail half, each run alone on the flush's input."""
+    from torch.profiler import ProfilerActivity, profile
+    hp, wp = det._bucket_hw(*imgs[0].shape)
+    head_fn, tail_fn = det.batch_parts(hp, wp, len(imgs))
+    flush_in = det._stack_to_device(*det._pack_stack(imgs, hp, wp))
+    head_out = head_fn(*flush_in)
+    out = {}
+    for name, fn in (("head", lambda: head_fn(*flush_in)),
+                     ("tail", lambda: tail_fn(*head_out))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        out[name] = {
+            "wall_ms": wall,
+            "device_ms": sum(e.self_device_time_total for e in events)
+            / 1e3 / reps,
+            "device_ops": sum(e.count for e in events) / reps}
+    return out
 
 
 if __name__ == "__main__":

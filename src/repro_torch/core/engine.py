@@ -62,8 +62,8 @@ class EngineConfig(NamedTuple):
     """The reference's ``EngineConfig``: same fields, same defaults, so
     plans and their keys are equal to the reference's.  ``interpret`` (a
     Pallas switch) has no effect in the port; ``lane_block`` shapes kernel
-    C's launch (``packed_window.block_shape``), while ``head_tile`` reaches
-    the plans but kernel A picks its own thread block.
+    C's launch (``packed_window.block_shape``) and ``head_tile`` kernels A
+    and B's (``haar_stage.head_block_shape``).
     ``tail_backend="pallas"`` selects kernel C."""
     step: int = 1
     scale_factor: float = 1.2
@@ -173,24 +173,28 @@ class Detector:
 
     # -------------------------------------------------------- dense heads
     def _head(self, img: torch.Tensor, gy: torch.Tensor, gx: torch.Tensor,
-              fused: bool, n_dense: int):
+              fused: bool, n_dense: int, tile: tuple):
         """SAT (B, h+1, w+1), 1/sigma grid (B, ny, nx) and, for the fused
-        head, the dense stages' sums (B, n_dense, ny, nx)."""
+        head, the dense stages' sums (B, n_dense, ny, nx), kernel A
+        launched in the plan's head ``tile``."""
         if fused:
-            return kops.fused_head_batch(self.cascade, 0, n_dense, img)
+            return kops.fused_head_batch(self.cascade, 0, n_dense, img,
+                                         tile=tile)
         ii, ii2, iic = kops.sat_tables(img)
         inv = window_inv_sigma((ii2, iic), gy[:, None], gx[None, :], WINDOW)
         return ii, inv, None
 
-    def _dense_sums(self, s: int, ii, inv_grid, sums, ys, xs, use_kernel):
+    def _dense_sums(self, s: int, ii, inv_grid, sums, ys, xs, use_kernel,
+                    tile: tuple):
         """(B, n) stage-``s`` sums of the dense grid (fused output, kernel
-        B, or the plain oracle for strided / non-kernel configs)."""
+        B in the plan's head ``tile``, or the plain oracle for strided /
+        non-kernel configs)."""
         b = ii.shape[0]
         if sums is not None:
             return sums[:, s].reshape(b, -1)
         if use_kernel:
-            return kops.dense_stage_sums_batch(self.cascade, s, ii,
-                                               inv_grid).reshape(b, -1)
+            return kops.dense_stage_sums_batch(self.cascade, s, ii, inv_grid,
+                                               tile=tile).reshape(b, -1)
         k0, k1 = self.stage_bounds[s], self.stage_bounds[s + 1]
         return stage_sum_windows(self.cascade, ii, ys, xs,
                                  inv_grid.reshape(b, -1), k0, k1)
@@ -220,7 +224,8 @@ class Detector:
 
         def level_fn(img: torch.Tensor, limits: torch.Tensor) -> LevelResult:
             b = img.shape[0]
-            ii, inv_grid, sums = self._head(img, gy, gx, fused, n_dense)
+            ii, inv_grid, sums = self._head(img, gy, gx, fused, n_dense,
+                                            lp.head_tile)
             inv = inv_grid.reshape(b, -1)
             alive = (ys[None] <= limits[:, :1]) & (xs[None] <= limits[:, 1:])
             counts: list = []
@@ -231,7 +236,7 @@ class Detector:
                 if seg.dense:
                     for s in range(seg.s0, seg.s1):
                         ss = self._dense_sums(s, ii, inv_grid, sums, ys, xs,
-                                              use_kernel)
+                                              use_kernel, lp.head_tile)
                         alive = alive & (ss >= thr[s])
                         counts.append(alive.sum(1))
                     continue
@@ -404,7 +409,8 @@ class Detector:
                 lp = L["lp"]
                 img_l = stack[:, L["ys_idx"][:, None], L["xs_idx"][None, :]]
                 ii_l, inv_grid_l, sums_l = self._head(
-                    img_l, L["gy"], L["gx"], L["fused"], n_dense)
+                    img_l, L["gy"], L["gx"], L["fused"], n_dense,
+                    plan.head_tile)
                 inv_l = inv_grid_l.reshape(batch, -1)
                 if tail_segs:
                     sat_parts.append(ii_l.reshape(batch, -1))
@@ -415,7 +421,8 @@ class Detector:
                            & (L["xs_w"][None, :] <= x_lim[:, None]))
                 for s in range(n_dense):
                     ss = self._dense_sums(s, ii_l, inv_grid_l, sums_l,
-                                          L["ys_w"], L["xs_w"], use_kernel)
+                                          L["ys_w"], L["xs_w"], use_kernel,
+                                          plan.head_tile)
                     alive_l = alive_l & (ss >= thr[s])
                     counts[s] += alive_l.sum(1).to(torch.int32)
                 alive_parts.append(alive_l)

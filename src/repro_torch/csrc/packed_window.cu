@@ -57,56 +57,21 @@
 //     L1 (reading the SAT past L1 measured much slower), so the launch
 //     asks for a shared-memory carve-out that holds 16 resident warps'
 //     blocks and leaves the rest of the SM's 256 KB to L1.
-// The run's weak classifiers are staged once per block in shared memory, as
-// in kernels A and B.
+// The run's weak classifiers are staged once per block in shared memory
+// (common.cuh stage_params); the corner modes and reads (corner_mode,
+// corners) are common.cuh's, which kernels A and B share.
 
 #include "common.cuh"
 
 namespace {
 
 using repro_torch::WeakClassifier;
-
-// How a rectangle's corners relate to those of the rectangle before it in
-// the same weak classifier (Haar features are adjacent rectangles): a shared
-// corner is the same SAT entry, so it is read once and reused.
-enum Corners { kOwn = 0, kRight = 1, kBelow = 2, kPoint = 3 };
-
-__device__ inline int corner_mode(const int* prev, const int* r) {
-  if (r[2] == 0 && r[3] == 0) return kPoint;  // all four corners one entry
-  if (r[1] == prev[1] && r[3] == prev[3] && r[0] == prev[0] + prev[2]) return kRight;
-  if (r[0] == prev[0] && r[2] == prev[2] && r[1] == prev[1] + prev[3]) return kBelow;
-  return kOwn;
-}
-
-// Corners a (y0, x0), b (y0, x1), c (y1, x0), d (y1, x1) of one rectangle
-// at q + o (dy = h * stride, rw = w) for one lane.  On entry a..d hold the
-// previous rectangle's corners; mode M says which of them coincide with
-// this rectangle's, and only the others are read.
-template <int M>
-__device__ __forceinline__ void corners(const float* q, int o, int dy, int rw, float& a,
-                                        float& b, float& c, float& d) {
-  if (M == kRight) {
-    a = b;
-    c = d;
-    b = __ldg(q + o + rw);
-    d = __ldg(q + o + dy + rw);
-  } else if (M == kBelow) {
-    a = c;
-    b = d;
-    c = __ldg(q + o + dy);
-    d = __ldg(q + o + dy + rw);
-  } else if (M == kPoint) {
-    a = __ldg(q + o);
-    b = a;
-    c = a;
-    d = a;
-  } else {
-    a = __ldg(q + o);
-    b = __ldg(q + o + rw);
-    c = __ldg(q + o + dy);
-    d = __ldg(q + o + dy + rw);
-  }
-}
+using repro_torch::corner_mode;
+using repro_torch::corners;
+using repro_torch::kBelow;
+using repro_torch::kOwn;
+using repro_torch::kPoint;
+using repro_torch::kRight;
 
 // The twelve corner values of one weak classifier for R lanes that share
 // the row stride st, each at its window's SAT pointer p[j]: v[j][4 r + i]

@@ -8,20 +8,20 @@ port's plans carry the reference's tiles and stay equal to its plans.
 Two racers, both run by ``Detector.calibrated(tune_head=True)`` on the
 profiled image at every pyramid level:
 
-- :func:`measure_head` races the fused head (kernel S then kernel A)
-  against the split head the engine runs (kernel S, plain-torch 1/sigma,
-  kernel B once per dense stage) per level, and the head tiles; it gives
-  the ``head_rungs`` ladder and ``head_tile``.
+- :func:`measure_head` races the head tiles on the fused head (kernel S
+  then kernel A) by device time, then the fused head against the split
+  head the engine runs (kernel S, plain-torch 1/sigma, kernel B once per
+  dense stage) per level by wall time; it gives ``head_tile`` and the
+  ``head_rungs`` ladder.
 - :func:`measure_lane_block` races the packed tail's lane blocks on kernel
   C; it gives ``lane_block``.
 
 Kernel C takes its launch shape from the lane block (``lane_block = (r,
 c)``: ``c`` threads per block, ``r`` lanes per thread; see
-``packed_window.block_shape``), so :func:`measure_lane_block` times a
-different launch per candidate.  Kernel A still chooses its own thread
-block and ignores the head tile, so on the card every head-tile candidate
-times the same launch and that winner reflects noise.  The races and their
-schema stay so that plans stay equal to the reference's.
+``packed_window.block_shape``), and kernels A and B theirs from the head
+tile (``head_tile = (ty, tx)``: a block over ``ty x tx`` window origins;
+see ``haar_stage.head_block_shape``), so both races time a different
+launch per candidate.
 """
 
 from __future__ import annotations
@@ -63,6 +63,43 @@ def _best_ms(fn, device: torch.device, repeats: int, inner: int) -> float:
     return best * 1e3
 
 
+# cycles of the sleep kernel that holds the device while the host queues a
+# device-timed run (~2 ms on an H100), and the most it is doubled to
+_SLEEP_CYCLES = 1 << 22
+_MAX_SLEEP_CYCLES = 1 << 26
+
+
+def _device_ms(fn, device: torch.device, repeats: int, inner: int) -> float:
+    """Best-of-``repeats`` mean device time (ms) of ``inner`` warm calls of
+    ``fn()``.  On the card: CUDA events around the calls, queued behind a
+    sleep kernel so that the device runs them back to back and the host's
+    launch time between them does not count (the sleep is doubled until
+    the host has queued every call before it ends).  On the CPU: wall
+    time, :func:`_best_ms`."""
+    if device.type != "cuda":
+        return _best_ms(fn, device, repeats, inner)
+    fn()                                     # warm-up outside the clock
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles, best = _SLEEP_CYCLES, float("inf")
+    with torch.cuda.device(device):
+        for _ in range(repeats):
+            while True:
+                torch.cuda.synchronize(device)
+                torch.cuda._sleep(cycles)
+                start.record()
+                for _ in range(inner):
+                    fn()
+                end.record()
+                queued_ahead = not start.query()
+                end.synchronize()
+                if queued_ahead or cycles >= _MAX_SLEEP_CYCLES:
+                    break
+                cycles *= 2
+            best = min(best, start.elapsed_time(end) / inner)
+    return best
+
+
 def _tile_label(tile) -> str:
     return f"{tile[0]}x{tile[1]}"
 
@@ -70,12 +107,18 @@ def _tile_label(tile) -> str:
 def measure_head(cascade, workload, *, n_dense: int,
                  candidates=HEAD_TILE_CANDIDATES, repeats: int = 2,
                  inner: int = 3) -> dict:
-    """Race the fused head against the split head, per pyramid level.
+    """Race the head tiles, then the fused head against the split head, per
+    pyramid level.
 
     ``workload`` is the calibrated ``(level_image, weight)`` list;
-    ``n_dense`` the plan's dense-prefix stage count.  Per level it times
-    the split head and the fused head at each candidate tile (the same
-    launches: kernel A ignores the tile) on the cascade's device.
+    ``n_dense`` the plan's dense-prefix stage count.  On the cascade's
+    device, per level it first times the fused head launched in each
+    candidate tile by device time (:func:`_device_ms`: a tile changes only
+    the kernels' work, which the host's launch time would hide); the tile
+    with the least total wins.  Then per level it times the split head
+    (kernel B in the default tile, as the reference's) and the fused head
+    in the winning tile by wall time (:func:`_best_ms`: the two heads also
+    differ in the host work they launch).
     Returns the reference's schema::
 
         {"levels": [(h, w, n_windows), ...],
@@ -94,17 +137,26 @@ def measure_head(cascade, workload, *, n_dense: int,
         raise ValueError("measure_head needs at least one dense stage")
     device = cascade.rect_w.device
     candidates = tuple(tuple(c) for c in candidates)
-    levels: list[tuple[int, int, int]] = []
-    split_ms: list[float] = []
-    tile_ms: dict[str, list[float]] = {_tile_label(c): [] for c in candidates}
+    imgs = [torch.as_tensor(img, dtype=torch.float32, device=device)
+            for img, _weight in workload]
+    levels = [(h, w, (h - WINDOW + 1) * (w - WINDOW + 1))
+              for h, w in (img.shape for img in imgs)]
 
-    for img, _weight in workload:
-        img = torch.as_tensor(img, dtype=torch.float32, device=device)
+    def fused_head(img, tile):
+        return lambda: ops.fused_head(cascade, 0, n_dense, img, tile=tile)
+
+    tile_ms = {_tile_label(c): [_device_ms(fused_head(img, c), device,
+                                           repeats, inner) for img in imgs]
+               for c in candidates}
+    totals = [sum(tile_ms[_tile_label(c)]) for c in candidates]
+    winner = candidates[int(np.argmin(totals))]
+
+    split_ms: list[float] = []
+    fused_ms: list[float] = []
+    for img in imgs:
         h, w = img.shape
-        ny, nx = h - WINDOW + 1, w - WINDOW + 1
-        levels.append((h, w, ny * nx))
-        gy = torch.arange(ny, device=device)[:, None]
-        gx = torch.arange(nx, device=device)[None, :]
+        gy = torch.arange(h - WINDOW + 1, device=device)[:, None]
+        gx = torch.arange(w - WINDOW + 1, device=device)[None, :]
 
         def split_head(img=img, gy=gy, gx=gx):
             ii, ii2, iic = ops.sat_tables(img[None])
@@ -113,14 +165,9 @@ def measure_head(cascade, workload, *, n_dense: int,
                     for s in range(n_dense)]
 
         split_ms.append(_best_ms(split_head, device, repeats, inner))
-        for cand in candidates:
-            tile_ms[_tile_label(cand)].append(_best_ms(
-                lambda img=img: ops.fused_head(cascade, 0, n_dense, img),
-                device, repeats, inner))
+        fused_ms.append(_best_ms(fused_head(img, winner), device, repeats,
+                                 inner))
 
-    totals = [sum(tile_ms[_tile_label(c)]) for c in candidates]
-    winner = candidates[int(np.argmin(totals))]
-    fused_ms = list(tile_ms[_tile_label(winner)])
     order = np.argsort([nwin for (_h, _w, nwin) in levels], kind="stable")
     rungs = tuple(
         (levels[i][2], "fused" if fused_ms[i] <= split_ms[i] else "split")

@@ -1,11 +1,14 @@
 """Kernel A: the tile pass of the fused dense head.
 
-``tile_pass(cascade, s0, s1, ii, ii2, iic)`` reads the three padded SATs
-(B, H+1, W+1) of kernel S and returns ``(inv, sums)``: the (B, ny, nx)
-1/sigma grid and the (B, s1 - s0, ny, nx) vote sums of every stage of the
-dense run ``[s0, s1)``, with ``ny = H - 23`` and ``nx = W - 23``.  The
+``tile_pass(cascade, s0, s1, ii, ii2, iic, tile)`` reads the three padded
+SATs (B, H+1, W+1) of kernel S and returns ``(inv, sums)``: the (B, ny,
+nx) 1/sigma grid and the (B, s1 - s0, ny, nx) vote sums of every stage of
+the dense run ``[s0, s1)``, with ``ny = H - 23`` and ``nx = W - 23``.  The
 port's fused head is kernel S then this pass
 (:func:`repro_torch.kernels.ops.fused_head_batch`): two launches.
+``tile`` is the plan's ``head_tile``, launched as kernel B's
+(:func:`repro_torch.kernels.haar_stage.head_block_shape`); the plain
+version ignores it.
 
 On a CUDA tensor it launches ``csrc/fused_head.cu`` (the port of
 ``repro.kernels.fused_head._fused_kernel``); on a CPU tensor it runs
@@ -23,7 +26,8 @@ from repro_torch.core.cascade import Cascade, WINDOW
 from repro_torch.core.integral import div_rn, inv_sigma_of
 
 from . import native
-from .haar_stage import dense_sums_plain
+from .autotune import DEFAULT_TILE
+from .haar_stage import dense_sums_plain, head_block_shape
 from .native import CASCADE_ARGTYPES, I32, P, cascade_ptrs, ptr, stream_of
 
 __all__ = ["tile_pass", "tile_pass_plain", "KERNEL"]
@@ -33,13 +37,13 @@ _AREA = float(WINDOW * WINDOW)
 KERNEL = native.Kernel(
     "fused_head.cu", "fused_head_tiles",
     [P, P, P, P, P, I32, I32, I32] + CASCADE_ARGTYPES
-    + [I32, I32, I32, I32, I32, P])
+    + [I32, I32, I32, I32, I32, I32, I32, I32, P])
 
 
 def tile_pass(cascade: Cascade, s0: int, s1: int, ii: torch.Tensor,
-              ii2: torch.Tensor, iic: torch.Tensor):
+              ii2: torch.Tensor, iic: torch.Tensor, tile=DEFAULT_TILE):
     """``(inv (B, ny, nx), sums (B, s1 - s0, ny, nx))`` from kernel S's
-    tables."""
+    tables, launched in the block of ``tile``."""
     if ii.device.type == "cpu":
         return tile_pass_plain(cascade, s0, s1, ii, ii2, iic)
     for name, t in (("ii", ii), ("ii2", ii2), ("iic", iic)):
@@ -57,9 +61,10 @@ def tile_pass(cascade: Cascade, s0: int, s1: int, ii: torch.Tensor,
     sums = torch.empty((b, s1 - s0, ny, nx), dtype=torch.float32,
                        device=ii.device)
     if b:
+        block = head_block_shape(tile)
         KERNEL(ptr(ii), ptr(ii2), ptr(iic), ptr(inv), ptr(sums), b, h1, w1,
-               *cascade_ptrs(cascade, ii), s0, s1, k0, k1, ii.device.index,
-               stream_of(ii))
+               *cascade_ptrs(cascade, ii), s0, s1, k0, k1, *block,
+               ii.device.index, stream_of(ii), block=block)
     return inv, sums
 
 

@@ -15,7 +15,8 @@ bit, to its plain PyTorch version.
 
 :class:`Kernel` is one C entry point plus its launch counter: the counter
 moves by one where the entry point launched without error, and nowhere
-else.  Nothing here is imported or built when the package is imported.
+else; ``last_block`` keeps the launch shape the wrapper gave that launch.
+Nothing here is imported or built when the package is imported.
 """
 
 from __future__ import annotations
@@ -112,10 +113,11 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.last_block = None
         self._fn = None
         KERNELS[Path(source).stem] = self
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, block=None) -> None:
         if self._fn is None:
             lib = _library(self.source)
             fn = getattr(lib, self.symbol)
@@ -129,6 +131,7 @@ class Kernel:
             msg = _library(self.source).repro_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
         self.launches += 1
+        self.last_block = block
 
 
 KERNELS: dict[str, Kernel] = {}

@@ -19,7 +19,10 @@ Kernels and what they port:
 
 ``integral_image(_batch)`` run kernel S and return its first table (the
 padded SAT of the image), as the reference's ``integral_image_kernel``
-wrappers do.
+wrappers do.  The dense heads take the plan's ``head_tile`` as ``tile``
+(the reference's keyword), which shapes kernels A and B's launch
+(:func:`repro_torch.kernels.haar_stage.head_block_shape`) and never the
+sums; their twins take none.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from . import haar_stage as _haar
 from . import packed_window as _packed
 from . import ref
 from . import window_variance as _wv
+from .autotune import DEFAULT_TILE
 from .integral_image import sat_tables
 from .native import launches, reset_launches
 
@@ -119,18 +123,19 @@ def window_inv_sigma_grid_ref(ii_pair: torch.Tensor, ny: int,
 
 # ---------------------------------------------------------------- fused (A)
 def fused_head_batch(cascade: Cascade, s0: int, s1: int,
-                     imgs: torch.Tensor):
+                     imgs: torch.Tensor, tile=DEFAULT_TILE):
     """Fused dense head for stages ``[s0, s1)`` over a (B, H, W) stack:
     ``(ii (B, H+1, W+1), inv (B, ny, nx), sums (B, s1-s0, ny, nx))``.
-    Kernel S builds the SATs, kernel A does the tile pass."""
+    Kernel S builds the SATs, kernel A does the tile pass in ``tile``."""
     ii, ii2, iic = sat_tables(imgs)
-    inv, sums = _fused.tile_pass(cascade, s0, s1, ii, ii2, iic)
+    inv, sums = _fused.tile_pass(cascade, s0, s1, ii, ii2, iic, tile)
     return ii, inv, sums
 
 
-def fused_head(cascade: Cascade, s0: int, s1: int, img: torch.Tensor):
+def fused_head(cascade: Cascade, s0: int, s1: int, img: torch.Tensor,
+               tile=DEFAULT_TILE):
     """:func:`fused_head_batch` of one (H, W) image."""
-    ii, inv, sums = fused_head_batch(cascade, s0, s1, img[None])
+    ii, inv, sums = fused_head_batch(cascade, s0, s1, img[None], tile)
     return ii[0], inv[0], sums[0]
 
 
@@ -149,16 +154,19 @@ def fused_head_ref(cascade: Cascade, s0: int, s1: int, img: torch.Tensor):
 
 # ---------------------------------------------------------------- dense (B)
 def dense_stage_sums_batch(cascade: Cascade, s: int, ii: torch.Tensor,
-                           inv_sigma_grid: torch.Tensor) -> torch.Tensor:
+                           inv_sigma_grid: torch.Tensor,
+                           tile=DEFAULT_TILE) -> torch.Tensor:
     """(B, ny, nx) stage-``s`` sums from (B, H+1, W+1) SATs and (B, ny, nx)
-    1/sigma grids."""
-    return _haar.stage_sums(cascade, s, ii, inv_sigma_grid)
+    1/sigma grids, kernel B launched in ``tile``."""
+    return _haar.stage_sums(cascade, s, ii, inv_sigma_grid, tile)
 
 
 def dense_stage_sums(cascade: Cascade, s: int, ii: torch.Tensor,
-                     inv_sigma_grid: torch.Tensor) -> torch.Tensor:
+                     inv_sigma_grid: torch.Tensor,
+                     tile=DEFAULT_TILE) -> torch.Tensor:
     """:func:`dense_stage_sums_batch` of one (H+1, W+1) SAT."""
-    return _haar.stage_sums(cascade, s, ii[None], inv_sigma_grid[None])[0]
+    return _haar.stage_sums(cascade, s, ii[None], inv_sigma_grid[None],
+                            tile)[0]
 
 
 def dense_stage_sums_ref(cascade: Cascade, s: int, ii: torch.Tensor,

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on a card (``cuda`` marker): each kernel equal
-bit for bit to its plain version on the same inputs, a small
-``detect_batch`` on the card equal to the port's CPU run, through every
-kernel, and a small ``calibrated`` run on the card whose rects and
-capacities equal the CPU run's.  Imports only torch, numpy and the port,
-so it runs where jax is not installed:
+bit for bit to its plain version on the same inputs (the dense heads A and
+B in every head tile, on ragged grids), a small ``detect_batch`` on the
+card equal to the port's CPU run, through every kernel, and a small
+``calibrated`` run on the card whose rects and capacities equal the CPU
+run's.  Imports only torch, numpy and the port, so it runs where jax is
+not installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -18,7 +19,9 @@ from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade
 from repro_torch.core.training.data import render_scene
 from repro_torch.kernels import fused_head, haar_stage, integral_image, ops
 from repro_torch.kernels import packed_window, window_variance
-from repro_torch.kernels.autotune import LANE_BLOCK_CANDIDATES
+from repro_torch.kernels.autotune import (HEAD_TILE_CANDIDATES,
+                                          LANE_BLOCK_CANDIDATES)
+from repro_torch.kernels.haar_stage import head_block_shape
 
 SMALL = [3, 4, 5, 6, 8]
 
@@ -176,3 +179,84 @@ def test_packed_kernel_equals_plain_per_block_and_live_count(card,
         m = min(n, cap)
         assert torch.equal(got[:, :m], full[:, :m]), n
         assert not got[:, m:].any(), n
+
+
+# (B, h, w) stacks: ragged in both grid dims, a 1x1 window grid, a grid
+# one 256-wide tile does not cover (nx = 277), and the main path's level 0
+HEAD_STACKS = [(3, 37, 70), (1, 24, 24), (2, 40, 300), (1, 480, 640)]
+N_DENSE = 3
+BIG_STAGE = 23          # the paper cascade's 211-classifier stage
+
+
+@pytest.fixture(scope="module")
+def paper_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return paper_shaped_cascade(0, device="cuda")
+
+
+def _head_tables(bhw):
+    rng = np.random.default_rng(sum(bhw))
+    imgs = torch.as_tensor(rng.integers(0, 256, bhw), dtype=torch.float32,
+                           device="cuda")
+    return integral_image.sat_tables(imgs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bhw", HEAD_STACKS)
+@pytest.mark.parametrize("tile", HEAD_TILE_CANDIDATES)
+def test_dense_heads_equal_plain_in_every_tile(paper_on_card, tile, bhw):
+    """Kernel A's 1/sigma and sums and kernel B's sums (the dense prefix
+    and the 211-classifier stage) equal their plain versions bit for bit
+    in each head tile, each launched in that tile's block; A's sums equal
+    B's given A's 1/sigma (fused == split)."""
+    casc = paper_on_card
+    ii, ii2, iic = _head_tables(bhw)
+    inv, sums = fused_head.tile_pass(casc, 0, N_DENSE, ii, ii2, iic,
+                                     tile=tile)
+    assert fused_head.KERNEL.last_block == head_block_shape(tile)
+    p_inv, p_sums = fused_head.tile_pass_plain(casc, 0, N_DENSE, ii, ii2,
+                                               iic)
+    assert torch.equal(inv, p_inv) and torch.equal(sums, p_sums)
+    b = casc.bounds
+    assert b[BIG_STAGE + 1] - b[BIG_STAGE] == 211
+    for s in list(range(N_DENSE)) + [BIG_STAGE]:
+        got = haar_stage.stage_sums(casc, s, ii, inv, tile=tile)
+        assert haar_stage.KERNEL.last_block == head_block_shape(tile)
+        assert torch.equal(got, haar_stage.dense_sums_plain(
+            casc, b[s], b[s + 1], ii, inv)), s
+        if s < N_DENSE:
+            assert torch.equal(got, sums[:, s]), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", HEAD_TILE_CANDIDATES)
+def test_fused_head_takes_a_dense_mode_run(paper_on_card, tile):
+    """``EngineConfig(mode="dense")`` runs all 25 stages (2913 weak
+    classifiers, many shared-memory chunks) through kernel A."""
+    casc = paper_on_card
+    ii, ii2, iic = _head_tables((2, 37, 70))
+    n = casc.n_stages
+    inv, sums = fused_head.tile_pass(casc, 0, n, ii, ii2, iic, tile=tile)
+    p_inv, p_sums = fused_head.tile_pass_plain(casc, 0, n, ii, ii2, iic)
+    assert torch.equal(inv, p_inv) and torch.equal(sums, p_sums)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["fused", "split"])
+@pytest.mark.parametrize("tile", HEAD_TILE_CANDIDATES)
+def test_plan_head_tile_reaches_the_launch(card, tile, head):
+    """A detector whose plan carries ``head_tile`` launches its dense
+    kernel in that tile's block, with the CPU run's rects."""
+    casc = paper_shaped_cascade(0, stage_sizes=SMALL)
+    rng = np.random.default_rng(7)
+    imgs = [render_scene(rng, 64, 64, n_faces=1)[0] for _ in range(3)]
+    cfg = EngineConfig(mode="wave", step=1, min_neighbors=2, use_pallas=True,
+                       tail_backend="pallas", head_mode=head, head_tile=tile)
+    kernel = (fused_head if head == "fused" else haar_stage).KERNEL
+    kernel.last_block = None
+    on_card = Detector(casc, cfg).detect_batch(imgs, group=False)
+    assert kernel.last_block == head_block_shape(tile)
+    on_cpu = Detector(casc, cfg, device="cpu").detect_batch(imgs, group=False)
+    for a, c in zip(on_card, on_cpu):
+        assert np.array_equal(a, c)
