@@ -38,17 +38,44 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
    the head-tile race's ms per candidate; the calibrated flush gives the
    default flush's rects, without overflow and without a rebuild on a
    repeat, and launches its dense kernels in the block of its plan's
-   ``head_tile``; ms per flush beside the default's.
+   ``head_tile``; ms per flush beside the default's;
+6. streaming: ``repro_torch.stream`` on the same cascade at the same width
+   (``capacity_fracs`` all 1.0, since ``detect``'s halving capacities
+   overflow on this cascade), ``STREAM_FRAMES`` seeded 480x640 frames of
+   each of the five ``make_video`` scenarios, ``StreamConfig(tile=32,
+   threshold=0, halo=1, keyframe_interval=16)`` with a decode list of
+   ``STREAM_DECODE_CAP`` slots.  Per frame, a device-state stream through
+   the depth-2 submit/retire loop and a host-planned stream give equal
+   rects and ``FrameStats``; a full frame gives ``detect``'s rects, and on
+   the other frames every window the stream recomputed has ``detect``'s
+   decision (the cached windows that differ from ``detect``, through
+   float32 SAT rounding, are counted).
+   ``static_cctv`` has an incremental frame and builds no executor after
+   its third frame (a sequential device-state run, equal to the pipelined
+   one); ``intermittent_cctv`` has a cached frame.  Then per scenario the frames
+   by mode, the share of windows recomputed, the bytes moved per frame,
+   ms per frame of the pipelined stream and ``detect`` in turns (on
+   ``static_cctv`` also of the host-planned stream), and the device time
+   of one incremental frame's step (CUDA events, and the profiler's
+   kernel time).  Kernel C is held against its plain version, bit for
+   bit, on the inputs of that step's C call (the whole cascade, the
+   dense-order prefix ``s_dense``, the rung's lanes with the live count),
+   and timed there beside its bound (the ``stream_step`` entry of C's row
+   in the kernels line).
 
 Every path driven on the card runs with the launch counts set to 0 just
 before it and read just after: each must have launched the kernels of its
 path (fused: S, A, C; split: S, B, C; ``detect``: S, A, C; kernel API: S,
-D; card vs CPU: S, A; calibrate: S, A, B, C) and none it must not (no
-engine path launches D).
+D; card vs CPU: S, A; calibrate: S, A, B, C; stream, the whole pipelined
+device-state ``static_cctv`` run: S, A on keyframes, C; stream_incremental,
+that stream's incremental frames alone, run one at a time: S and C) and
+none it must not (no engine path launches D; no stream path B; an
+incremental frame no dense kernel).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
-line, and last ``{"ok": true, "device": {...}}``; it exits non-zero, with
-no result line, when there is no CUDA device or no checkout around it.
+line, one ``{"stream": {...}}`` line, and last ``{"ok": true, "device":
+{...}}``; it exits non-zero, with no result line, when there is no CUDA
+device or no checkout around it.
 
 Bounds (``bound_ms``) are the larger of the bytes the call must move (each
 input read once, each output written once) over 3.35 TB/s and its float
@@ -80,6 +107,14 @@ DEVICE = "cuda"
 TAIL_SIZES = (2048,)
 KERNEL_API_SHAPES = ((64, 128), (96, 96), (128, 256))   # bench_kernels sweep
 INV_TOL = dict(rtol=1e-4, atol=1e-6)
+PARAM_BYTES = 72     # one weak classifier's record, as the kernels read it
+# phase 6: frames per scenario, the stream's configuration, and the decode
+# list, sized past the 1,933-25,989 raw windows this cascade keeps per
+# 480x640 frame (the default 2048 would send every incremental frame to a
+# full refresh)
+STREAM_FRAMES = 16
+STREAM_CONFIG = dict(tile=32, threshold=0.0, halo=1, keyframe_interval=16)
+STREAM_DECODE_CAP = 32768
 
 
 def fail(msg: str) -> int:
@@ -220,19 +255,140 @@ def scenes(render_scene, n: int, h: int, w: int, seed: int, **kw):
     return [render_scene(rng, h, w, **kw)[0] for _ in range(n)]
 
 
+def main_path_config():
+    """The main path's engine config."""
+    from repro_torch.core import EngineConfig
+    return EngineConfig(mode="wave", step=1, scale_factor=1.2,
+                        use_pallas=True, pad_multiple=32,
+                        tail_backend="pallas")
+
+
 def main_path_workload(device):
     """The main path's workload: the paper-shaped cascade from ``SEED``,
     ``BATCH`` seeded ``H`` x ``W`` face scenes and the engine config.
     Needs ``src`` on ``sys.path``; ``scripts/port_profile.py`` measures
     the same workload through this function."""
-    from repro_torch.core import EngineConfig, paper_shaped_cascade
+    from repro_torch.core import paper_shaped_cascade
     from repro_torch.core.training.data import render_scene
     cascade = paper_shaped_cascade(SEED, device=device)
     imgs = scenes(render_scene, BATCH, H, W, SEED, n_faces=3)
-    cfg = EngineConfig(mode="wave", step=1, scale_factor=1.2,
-                       use_pallas=True, pad_multiple=32,
-                       tail_backend="pallas")
-    return cascade, imgs, cfg
+    return cascade, imgs, main_path_config()
+
+
+def stream_workload(device, n_frames: int = STREAM_FRAMES):
+    """Phase 6's workload: a detector on the main path's cascade and
+    config with every survivor kept (``capacity_fracs`` all 1.0), the
+    stream config, and per scenario ``n_frames`` seeded ``H`` x ``W``
+    frames (``make_video``).  ``scripts/port_profile.py --stream`` traces
+    the same workload through this function."""
+    from repro_torch.core import Detector, paper_shaped_cascade
+    from repro_torch.stream import SCENARIOS, StreamConfig, make_video
+    cascade = paper_shaped_cascade(SEED, device=device)
+    cfg = main_path_config()
+    base = Detector(cascade, cfg, device=device)
+    n_tail = len(base.batch_plan(*base._bucket_hw(H, W)).tail_segments)
+    det = Detector(cascade, cfg._replace(capacity_fracs=(1.0,) * n_tail),
+                   device=device)
+    videos = {kind: [f for f, _gt in make_video(kind, n_frames=n_frames,
+                                                h=H, w=W, seed=SEED)]
+              for kind in SCENARIOS}
+    return det, StreamConfig(**STREAM_CONFIG), videos
+
+
+def pipelined(vd, frames) -> list:
+    """``vd``'s frames through the depth-2 submit/retire loop (frame i + 1
+    is submitted before frame i is retired): ``[(rects, stats), ...]``."""
+    out, prev = [], None
+    for f in frames:
+        tok = vd.submit(f)
+        if prev is not None:
+            out.append(vd.retire(prev))
+        prev = tok
+    out.append(vd.retire(prev))
+    return out
+
+
+def stream_step_replay(vd, frames, first: int = 2):
+    """Run the device-state stream ``vd`` over ``frames`` one at a time up
+    to the first frame at or after ``first`` that comes back incremental;
+    return ``(fn, i)``: ``fn()`` enqueues frame ``i``'s device step again
+    from the state it read, into the other buffer of the pair (the same
+    output every call), and ``i`` is that frame."""
+    cfg = vd.config
+    for i, f in enumerate(frames):
+        head = vd._dev_state
+        _rects, st = vd.process(f)
+        if i >= first and st.mode == "incremental":
+            break
+    else:
+        raise RuntimeError("no incremental frame to replay")
+    step = vd.engine.stream_step(vd._splan, vd._dev_rung,
+                                 cfg.threshold <= 0, cfg.full_refresh_frac)
+    spare = vd._bufs[1] if head is vd._bufs[0] else vd._bufs[0]
+    frame = vd._upload_frame(frames[i])
+    return (lambda: step(vd.detector.cascade, head, frame,
+                         float(cfg.threshold), int(cfg.keyframe_interval),
+                         spare)), i
+
+
+def stream_step_c_call(fn):
+    """The arguments ``(args, kwargs)`` of the one kernel C call
+    (``packed_window.stage_sums``) that a call of the replayed stream step
+    ``fn`` makes."""
+    from repro_torch.kernels import packed_window
+    real, seen = packed_window.stage_sums, []
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    packed_window.stage_sums = spy
+    try:
+        fn()
+    finally:
+        packed_window.stage_sums = real
+    if len(seen) != 1:
+        raise RuntimeError(f"the stream step called kernel C {len(seen)} "
+                           "times, not once")
+    return seen[0]
+
+
+def check_stream_step_c(torch, fn, smi: str):
+    """Kernel C on the inputs of the replayed incremental step ``fn``'s
+    C call, against its plain version bit for bit (every lane: the plain
+    version zeroes past the live count as C does), and timed beside its
+    bound on the live lanes.  Returns ``(entry, error)``."""
+    from repro_torch.kernels import packed_window
+    args, kw = stream_step_c_call(fn)
+    cascade, s0, s1, ii_flat = args[:4]
+    inv = args[9]
+    n_live, s_dense = kw["n_live"], kw["s_dense"]
+    got = packed_window.stage_sums(*args, **kw)
+    want = packed_window.stage_sums_plain(*args, n_live, s_dense)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    cap, live = inv.numel(), int(n_live)
+    k = int(cascade.bounds[s1] - cascade.bounds[s0])
+    b_ms, b_by = bound_ms(4 * ii_flat.numel() + 4 * 6 * live
+                          + PARAM_BYTES * k + 4 * cap * (s1 - s0),
+                          live * 20 * k)
+    entry = {"max_abs_err": err, "stages": [s0, s1], "s_dense": s_dense,
+             "weak": k, "lanes": cap, "live_lanes": live,
+             "ms": profiled_ms(torch, lambda: packed_window.stage_sums(
+                 *args, **kw), 10),
+             "plain_ms": cuda_ms(torch, lambda: packed_window.stage_sums_plain(
+                 *args, n_live, s_dense), 1),
+             "bound_ms": b_ms, "bound_by": b_by}
+    print(f"kernel C on the stream step's inputs: stages [{s0}, {s1}), "
+          f"s_dense {s_dense}, {live} of {cap} lanes live: max_abs_err "
+          f"{err:.3g} ms {entry['ms']:.4f} plain_ms {entry['plain_ms']:.4f} "
+          f"bound_ms {b_ms:.4f} ({b_by}) [{smi}]")
+    if s_dense <= s0 or live <= 0:
+        return entry, (f"the stream step's C call has s_dense {s_dense} and "
+                       f"{live} live lanes: no dense-order prefix checked")
+    bad = diff(got, want)
+    return entry, (f"kernel C on the stream step's inputs: {bad}"
+                   if bad else "")
 
 
 def check_kernel_api(torch, stack) -> list:
@@ -307,6 +463,181 @@ def calibration_probe(head_counts, plan) -> int:
     """The flush image with the most survivors after the dense prefix,
     from a batch head's ``counts`` (n_stages, B)."""
     return int(head_counts[plan.dense_prefix - 1].argmax())
+
+
+def detect_bitmap(det, geo, frame):
+    """``detect``'s raw survivors of ``frame`` as a flat bitmap over the
+    stream geometry ``geo``'s slots."""
+    import numpy as np
+    from repro_torch.stream import level_windows_from_raw
+    bitmap = np.zeros(geo.n_slots, bool)
+    wins = level_windows_from_raw(det.detect_raw(frame))
+    for li, (ys, xs) in enumerate(wins):
+        nx = geo.level_windows[li][1]
+        bitmap[geo.slot_offsets[li] + (ys // geo.step) * nx
+               + xs // geo.step] = True
+    return bitmap
+
+
+def check_stream(torch, on_path, by_path: dict, smi: str):
+    """Phase 6.  Returns ``(report, error)``; ``error`` is '' when every
+    check held.
+
+    The device-state and host-planned streams give equal rects and
+    ``FrameStats`` on every frame, a full frame gives ``detect``'s rects,
+    and on every other frame each window the stream recomputed has
+    ``detect``'s decision; the cached windows whose decision differs from
+    ``detect``'s (float32 SAT rounding couples a window to the pixels
+    above and left of it) are counted, as are the frames whose rects
+    differ from ``detect``'s."""
+    from collections import Counter
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.stream import VideoDetector
+    det, scfg, videos = stream_workload(DEVICE)
+    dev_cfg = scfg._replace(device_state=True)
+    head_s, head_a, split_b, tail_c, inv_d = (
+        "integral_image", "fused_head", "haar_stage", "packed_window",
+        "window_variance")
+    out: dict = {"card": smi, "frames": STREAM_FRAMES, "hw": [H, W],
+                 "config": STREAM_CONFIG, "decode_cap": STREAM_DECODE_CAP,
+                 "scenarios": {}}
+    for kind, frames in videos.items():
+        n = len(frames)
+        wants = [det.detect(f) for f in frames]
+        vd = VideoDetector(det, dev_cfg, decode_cap=STREAM_DECODE_CAP)
+        if kind == "static_cctv":
+            dev_out, err = on_path("stream", lambda: pipelined(vd, frames),
+                                   (head_s, head_a, tail_c),
+                                   (split_b, inv_d))
+            if err:
+                return out, err
+        else:
+            dev_out = pipelined(vd, frames)
+        vh = VideoDetector(det, scfg)
+        geo = None
+        stale, stale_frames = [], 0
+        for i, f in enumerate(frames):
+            frame, plan = vh.plan_frame(f)
+            rh, sh = vh.commit_planned(frame, plan)
+            rd, sd = dev_out[i]
+            if not np.array_equal(rd, rh) or sd != sh:
+                return out, (f"stream {kind} frame {i}: device-state "
+                             f"{sd} != host-planned {sh}")
+            want = wants[i]
+            if sh.mode == "full":
+                if not np.array_equal(rh, want):
+                    return out, (f"stream {kind} frame {i} (full): rects "
+                                 "differ from detect")
+                stale.append(0)
+                continue
+            geo = geo or vh._geo
+            diff = vh._bitmap ^ detect_bitmap(det, geo, f)
+            if plan.mode == "incremental" and (
+                    diff & np.concatenate(plan.masks)).any():
+                return out, (f"stream {kind} frame {i}: a recomputed window "
+                             "differs from detect")
+            stale.append(int(diff.sum()))
+            stale_frames += not np.array_equal(rh, want)
+        stats = [st for _r, st in dev_out]
+        modes = Counter(st.mode for st in stats)
+        row = {"modes": dict(modes),
+               "window_recompute_share":
+                   sum(st.windows_recomputed for st in stats)
+                   / sum(st.windows_total for st in stats),
+               "xfer_bytes_per_frame": vd.xfer_bytes / n,
+               "host_xfer_bytes_per_frame": vh.xfer_bytes / n,
+               "stale_windows_per_frame": stale,
+               "frames_rects_differ_from_detect": stale_frames,
+               "program_builds": vd.engine.program_builds,
+               "rung": vd._dev_rung}
+        if kind == "static_cctv":
+            # one frame at a time: the launches of the incremental frames
+            # alone, and the executor builds after each frame
+            vs = VideoDetector(det, dev_cfg, decode_cap=STREAM_DECODE_CAP)
+            incr = {k: 0 for k in ops.launches()}
+            builds = []
+            for i, f in enumerate(frames):
+                ops.reset_launches()
+                rects, st = vs.process(f)
+                counts = ops.launches()
+                if st.mode == "incremental":
+                    incr = {k: incr[k] + counts[k] for k in incr}
+                builds.append(vs.engine.program_builds)
+                if not np.array_equal(rects, dev_out[i][0]) \
+                        or st != dev_out[i][1]:
+                    return out, (f"stream static_cctv frame {i}: sequential "
+                                 "!= pipelined")
+            by_path["stream_incremental"] = incr
+            print(f"stream_incremental launches: {incr}")
+            missing = [k for k in (head_s, tail_c) if incr[k] <= 0]
+            extra = [k for k in (head_a, split_b, inv_d) if incr[k]]
+            if missing or extra:
+                return out, (f"path stream_incremental: not launched "
+                             f"{missing}, launched {extra}")
+            if modes["incremental"] < 1:
+                return out, "static_cctv had no incremental frame"
+            if builds[-1] != builds[2]:
+                return out, (f"static_cctv built executors after its third "
+                             f"frame: {builds}")
+            row["builds_per_frame"] = builds
+            fn, i_step = stream_step_replay(
+                VideoDetector(det, dev_cfg, decode_cap=STREAM_DECODE_CAP),
+                frames)
+            row["step_frame"] = i_step
+            row["step_ms_events"] = cuda_ms(torch, fn, 20)
+            row["step_device_ms"] = profiled_ms(torch, fn, 10)
+            row["step_sat_ms"] = profiled_ms(torch, fn, 10, "sat_chained")
+            row["step_c_ms"] = profiled_ms(torch, fn, 10, "packed_sums")
+            out["step_kernel_c"], err = check_stream_step_c(torch, fn, smi)
+            if err:
+                return out, err
+        if kind == "intermittent_cctv" and modes["cached"] < 1:
+            return out, "intermittent_cctv had no cached frame"
+        # ms per frame in turns: the pipelined device-state stream (a new
+        # stream on the same engine, wall clock to a final synchronize) and
+        # per-frame detect; on static_cctv also the host-planned stream,
+        # once
+        timed: dict = {"stream": [], "detect": []}
+        turns = ["stream", "detect", "detect", "stream"]
+        if kind == "static_cctv":
+            turns.append("host")
+        for label in turns:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if label == "stream":
+                pipelined(VideoDetector(det, dev_cfg, vd.engine,
+                                        decode_cap=STREAM_DECODE_CAP),
+                          frames)
+            elif label == "host":
+                v = VideoDetector(det, scfg, vh.engine)
+                for f in frames:
+                    v.process(f)
+            else:
+                for f in frames:
+                    det.detect(f)
+            torch.cuda.synchronize()
+            timed.setdefault(label, []).append(
+                (time.perf_counter() - t0) * 1e3 / n)
+        row["ms_per_frame"] = {k: sum(v) / len(v) for k, v in timed.items()}
+        row["ms_per_frame_runs"] = timed
+        out["scenarios"][kind] = row
+        ms = row["ms_per_frame"]
+        print(f"stream {kind}: modes {dict(modes)}, recompute share "
+              f"{row['window_recompute_share']:.4f}, "
+              f"{row['xfer_bytes_per_frame']:.0f} B/frame moved "
+              f"(host-planned {row['host_xfer_bytes_per_frame']:.0f}); "
+              f"cached windows off detect per frame {stale}, frames whose "
+              f"rects differ {stale_frames}; ms/frame device-state "
+              f"{ms['stream']:.2f}, detect {ms['detect']:.2f} [{smi}]")
+        if kind == "static_cctv":
+            print(f"  host-planned stream {ms['host']:.2f} ms/frame "
+                  f"[{smi}]")
+            print(f"  incremental step of frame {row['step_frame']}: "
+                  f"{row['step_ms_events']:.3f} ms by CUDA events, device "
+                  f"{row['step_device_ms']:.3f} ms (S {row['step_sat_ms']:.3f}"
+                  f", C {row['step_c_ms']:.3f}) [{smi}]")
+    return out, ""
 
 
 def main() -> int:
@@ -437,7 +768,7 @@ def main() -> int:
             inv_a, sums_a = inv_t, sums_t
     n_win = inv_p.numel()
     sat_bytes = 3 * 4 * n_tab
-    param_bytes = 72
+    param_bytes = PARAM_BYTES
     print(f"kernel A per head tile (ms, block): "
           f"{ {k: (round(v, 4), a_blocks[k]) for k, v in a_ms.items()} } "
           f"[{smi}]")
@@ -823,6 +1154,18 @@ def main() -> int:
           f"{calib['tail_ms_calibrated']:.2f} ms [{smi}]")
     report["calibration"] = calib
 
+    # ------------------------------------------------------ 6. streaming
+    t_stream = time.perf_counter()
+    stream, err = check_stream(torch, on_path, by_path, smi)
+    if err:
+        return fail(err)
+    stream["seconds"] = time.perf_counter() - t_stream
+    print(f"streaming phase: {stream['seconds']:.1f} s")
+    report["stream"] = stream
+    # kernel C on the stream step's inputs, beside its batched-tail row
+    next(r for r in rows if r["_kernel"] == tail_c)["stream_step"] = \
+        stream.pop("step_kernel_c")
+
     # each kernel's launches are those of the first path that runs it: S, A
     # and C on the fused flush, B on the split flush, D on the kernel API
     launch_path = {split_b: "split", inv_d_k: "kernel_api"}
@@ -836,6 +1179,7 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(smi)
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"stream": stream}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

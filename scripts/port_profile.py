@@ -2,7 +2,7 @@
 """Where a flush of the port's main path spends its time, on one GPU.
 
     python3 scripts/port_profile.py [--flushes 3] [--head fused|split]
-                                    [--calibrated]
+                                    [--calibrated] [--stream [FRAMES]]
 
 Builds the port's kernels, warms ``Detector.detect_batch`` (packed
 strategy) on the main path's workload as ``chip_smoke.main_path_workload``
@@ -21,8 +21,18 @@ time is the host's packing, copies and decode.
 ``chip_smoke.py``'s phase 5 (``chip_smoke.calibrate_main_path``: measured
 capacities, tail and head ladders; about a minute of racing first), whose
 head mode its ladder picks.  Writes the same as JSON to
-``chiprun_out/port_profile_<head or calibrated>.json``.  Needs a CUDA
-card; fails without one.
+``chiprun_out/port_profile_<head or calibrated>.json``.
+
+``--stream`` instead traces ``FRAMES`` (default 4) incremental frames of
+``chip_smoke.py``'s phase-6 ``static_cctv`` stream
+(``chip_smoke.stream_workload``: the same cascade at 480x640, the
+device-state ``VideoDetector`` one frame at a time, after its keyframe
+and first incremental frame): per frame the host wall time, the device
+time by operation, the device operations, the idle share and the host's
+decode and grouping of the survivors, then the device step of one of
+those frames alone (``chip_smoke.stream_step_replay``).  Writes
+``chiprun_out/port_profile_stream.json``.
+Needs a CUDA card; fails without one.
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ def main() -> int:
     ap.add_argument("--flushes", type=int, default=3)
     ap.add_argument("--head", choices=("fused", "split"), default="fused")
     ap.add_argument("--calibrated", action="store_true")
+    ap.add_argument("--stream", type=int, nargs="?", const=4, default=0,
+                    metavar="FRAMES")
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -59,6 +71,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     native.build_all()
+    if args.stream:
+        return profile_stream(torch, smi, args.stream)
     cascade, imgs, cfg = main_path_workload("cuda")
     det = Detector(cascade, cfg._replace(head_mode=args.head))
     label = args.head
@@ -119,6 +133,97 @@ def main() -> int:
     dest.mkdir(exist_ok=True)
     (dest / f"port_profile_{label}.json").write_text(
         json.dumps(out, indent=1))
+    return 0
+
+
+def profile_stream(torch, smi: str, n_frames: int) -> int:
+    """``--stream``: trace ``n_frames`` incremental frames of the phase-6
+    ``static_cctv`` stream, then one of their device steps alone."""
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import (STREAM_DECODE_CAP, stream_step_replay,
+                            stream_workload)
+    from repro_torch.stream import VideoDetector
+    first = 3              # after the keyframe and the first rung growth
+    det, scfg, videos = stream_workload("cuda", n_frames=first + n_frames)
+    frames = videos["static_cctv"]
+    cfg = scfg._replace(device_state=True)
+    vd = VideoDetector(det, cfg, decode_cap=STREAM_DECODE_CAP)
+    for f in frames[:first]:
+        vd.process(f)
+    torch.cuda.synchronize()
+    modes, decode = [], {"ms": 0.0, "slots": 0}
+    real_decode = vd._decode_slots
+
+    def timed_decode(slots):
+        # the host half of commit_token: rects from the survivor slots and
+        # their grouping (nms.group_rectangles)
+        t = time.perf_counter()
+        rects = real_decode(slots)
+        decode["ms"] += (time.perf_counter() - t) * 1e3
+        decode["slots"] += len(slots)
+        return rects
+
+    vd._decode_slots = timed_decode
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in frames[first:]:
+            modes.append(vd.process(f)[1].mode)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    events = device_events(prof)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 \
+        / n_frames
+    top = [{"name": e.key, "calls_per_frame": e.count / n_frames,
+            "device_ms_per_frame": e.self_device_time_total / 1e3
+            / n_frames} for e in events[:15]]
+    ops_per_frame = sum(e.count for e in events) / n_frames
+    fn, i_step = stream_step_replay(
+        VideoDetector(det, cfg, decode_cap=STREAM_DECODE_CAP), frames,
+        first)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_frames):
+        fn()
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t0) * 1e3 / n_frames
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_frames):
+            fn()
+        torch.cuda.synchronize()
+    step_events = device_events(prof)
+    step = {"frame": i_step, "wall_ms": step_wall,
+            "device_ms": sum(e.self_device_time_total for e in step_events)
+            / 1e3 / n_frames,
+            "device_ops": sum(e.count for e in step_events) / n_frames}
+    out = {"card": smi, "scenario": "static_cctv", "frames": n_frames,
+           "modes": modes, "wall_ms_per_frame": wall_ms,
+           "device_ms_per_frame": device_ms,
+           "device_ops_per_frame": ops_per_frame,
+           "idle_share": 1.0 - device_ms / wall_ms, "step": step,
+           "decode_ms_per_frame": decode["ms"] / n_frames,
+           "survivors_per_frame": decode["slots"] / n_frames, "top": top}
+    print(f"card: {smi}")
+    print(f"stream static_cctv frames {first}..{first + n_frames - 1} "
+          f"({modes}): wall {wall_ms:.2f} ms per frame, device "
+          f"{device_ms:.3f} ms, {ops_per_frame:.0f} device operations, idle "
+          f"share {out['idle_share']:.3f}")
+    print(f"  host decode and grouping: {out['decode_ms_per_frame']:.2f} ms "
+          f"per frame of {out['survivors_per_frame']:.0f} survivor windows")
+    print(f"  step of frame {i_step} alone: wall {step['wall_ms']:.2f} ms, "
+          f"device {step['device_ms']:.3f} ms, {step['device_ops']:.0f} "
+          f"device operations")
+    for t in top:
+        print(f"  {t['device_ms_per_frame']:9.3f} ms  "
+              f"{t['calls_per_frame']:7.1f} calls  {t['name'][:90]}")
+    if not events:
+        print("port_profile: the trace holds no device time",
+              file=sys.stderr)
+        return 1
+    dest = ROOT / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    (dest / "port_profile_stream.json").write_text(json.dumps(out, indent=1))
     return 0
 
 

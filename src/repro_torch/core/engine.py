@@ -213,7 +213,7 @@ class Detector:
         dev = self.device
         n_dense = sum(seg.s1 - seg.s0 for seg in segs if seg.dense)
         fused = lp.head_mode == "fused" and n_dense > 0
-        use_kernel = cfg.use_pallas and step == 1
+        use_kernel = planlib.dense_on_kernels(cfg, step)
         gy = torch.arange(lp.ny, device=dev) * step
         gx = torch.arange(lp.nx, device=dev) * step
         ys = gy.repeat_interleave(lp.nx)
@@ -373,7 +373,7 @@ class Detector:
         cascade = self.cascade
         thr = cascade.stage_threshold
         dev = self.device
-        use_kernel = cfg.use_pallas and step == 1
+        use_kernel = planlib.dense_on_kernels(cfg, step)
         self.program_builds += 1
 
         def on_dev(a):

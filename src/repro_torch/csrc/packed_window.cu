@@ -11,9 +11,14 @@
 // Semantics kept from the TPU kernel: corners d - b - c + a, feat * inv /
 // 576, all three rectangles, votes in ascending k per stage, and every
 // SAT read clamps its flat index into [0, N - 1] as jnp.take(mode="clip")
-// does.  The flat offset img * n_sat + base is formed in 64 bits: eight
-// 480x640 images already give about 8.1 M SAT entries, and larger batches
-// would pass 2^31.
+// does.  Stages below s_dense (none on the batched tail, where s_dense <=
+// s0) take the dense kernels' arithmetic instead, corners (d - b) - (c - a)
+// and feat * inv * (1/576): the stream's incremental tail evaluates a
+// window's whole cascade here, and its decisions in the dense prefix must
+// be those of the dense head (kernels A and B) that detect runs there.
+// The flat offset img * n_sat + base is formed in 64 bits: eight 480x640
+// images already give about 8.1 M SAT entries, and larger batches would
+// pass 2^31.
 //
 // Bound on the H100: by peak rates, operations (about twenty float
 // operations per weak classifier per live lane).  In practice the gathers:
@@ -111,21 +116,34 @@ __device__ __forceinline__ void gather_any(int mode, const float* const (&p)[R],
   }
 }
 
-// Adds weak classifier wk's vote to acc for R lanes from their corner
-// values: feat = 0 + w0 * area0 + w1 * area1 + w2 * area2, area = d - b -
-// c + a, f_norm = feat * inv / 576, as the clamped path and the plain
-// version.
-template <int R>
-__device__ __forceinline__ void add_vote(const WeakClassifier& wk, const float (&v)[R][12],
-                                         const float (&iv)[R], float (&acc)[R]) {
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    float feat = 0.0f;
+// The normalized feature of one lane from its rectangles' corners a, b, c,
+// d: feat = 0 + w0 * area0 + w1 * area1 + w2 * area2, with area = d - b - c
+// + a and feat * inv / 576 (the tail's order), or, when dense, area = (d -
+// b) - (c - a) and feat * inv * (1/576) (the dense kernels' order).
+__device__ __forceinline__ float norm_feat(const WeakClassifier& wk, const float* v, float iv,
+                                           bool dense) {
+  float feat = 0.0f;
+  if (dense) {
 #pragma unroll
     for (int r = 0; r < 3; ++r)
-      feat = feat + wk.w[r] * (v[j][4 * r + 3] - v[j][4 * r + 1] - v[j][4 * r + 2] +
-                               v[j][4 * r]);
-    const float f_norm = feat * iv[j] / repro_torch::AREA;
+      feat = feat + wk.w[r] * ((v[4 * r + 3] - v[4 * r + 1]) - (v[4 * r + 2] - v[4 * r]));
+    return feat * iv * repro_torch::INV_AREA;
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    feat = feat + wk.w[r] * (v[4 * r + 3] - v[4 * r + 1] - v[4 * r + 2] + v[4 * r]);
+  return feat * iv / repro_torch::AREA;
+}
+
+// Adds weak classifier wk's vote to acc for R lanes from their corner
+// values, in the order norm_feat's `dense` picks, as the clamped path and
+// the plain version.
+template <int R>
+__device__ __forceinline__ void add_vote(const WeakClassifier& wk, const float (&v)[R][12],
+                                         const float (&iv)[R], bool dense, float (&acc)[R]) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const float f_norm = norm_feat(wk, v[j], iv[j], dense);
     acc[j] = acc[j] + (f_norm < wk.theta ? wk.left : wk.right);
   }
 }
@@ -138,15 +156,17 @@ constexpr size_t kMaxSmem = 233472;   // an SM's largest shared-memory carve-out
 // Fast path: R lanes with one row stride, every window's footprint inside
 // the table.  p[j] points at lane j's window origin in the SAT.  A lane
 // with on[j] false (not this thread's) repeats lane 0's window and is not
-// written.  The loop over the
-// run's weak classifiers is software-pipelined: the gathers of classifier
-// k + 1 go out before classifier k's arithmetic waits on its own, so a
-// warp has two classifiers' gathers in flight.
-template <int R>
+// written.  With kDense, the run's first kd weak classifiers take the
+// dense order; without it (every batched-tail launch) kd is unused and
+// the loop is the tail order's alone.  The loop over the run's weak
+// classifiers is software-pipelined: the gathers of classifier k + 1 go
+// out before classifier k's arithmetic waits on its own, so a warp has
+// two classifiers' gathers in flight.
+template <int R, bool kDense>
 __device__ __forceinline__ void lane_sums_fast(const float* const (&p)[R], int st,
                                                const float (&iv)[R], const bool (&on)[R],
                                                const WeakClassifier* wc, const int* modes,
-                                               const int* bounds, int n_run,
+                                               const int* bounds, int n_run, int kd,
                                                float* __restrict__ out, int cap,
                                                long long first, int step) {
   float acc[R];
@@ -169,7 +189,7 @@ __device__ __forceinline__ void lane_sums_fast(const float* const (&p)[R], int s
   if (n_k > 0) gather_any<R>(modes[0], p, st, wc[0], cur);
   for (int k = 0; k < n_k; ++k) {
     if (k + 1 < n_k) gather_any<R>(modes[k + 1], p, st, wc[k + 1], nxt);
-    add_vote<R>(wc[k], cur, iv, acc);
+    add_vote<R>(wc[k], cur, iv, kDense && k < kd, acc);
     finish_stages(k + 1);
 #pragma unroll
     for (int j = 0; j < R; ++j)
@@ -180,12 +200,13 @@ __device__ __forceinline__ void lane_sums_fast(const float* const (&p)[R], int s
 
 // General path: lanes with on[j] false (not this thread's) read nothing and
 // are not written; the rest read every corner at its flat index clamped
-// into [0, last], as jnp.take(mode="clip").
-template <int R>
+// into [0, last], as jnp.take(mode="clip").  With kDense, the run's first
+// kd weak classifiers take the dense order.
+template <int R, bool kDense>
 __device__ __forceinline__ void lane_sums_clamped(
     const float* __restrict__ sat, long long last, const long long (&off)[R],
     const int (&st)[R], const float (&iv)[R], const bool (&on)[R],
-    const WeakClassifier* wc, const int* bounds, int n_run, float* __restrict__ out,
+    const WeakClassifier* wc, const int* bounds, int n_run, int kd, float* __restrict__ out,
     int cap, long long first, int step) {
   auto at = [&](long long i) { return __ldg(sat + (i < 0 ? 0 : (i > last ? last : i))); };
   for (int si = 0; si < n_run; ++si) {
@@ -197,16 +218,18 @@ __device__ __forceinline__ void lane_sums_clamped(
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         if (!on[j]) continue;
-        float feat = 0.0f;
+        float v[12];
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
           const long long o = off[j] + (long long)wk.rect[r][1] * st[j] + wk.rect[r][0];
           const long long dy = (long long)wk.rect[r][3] * st[j];
           const int rw = wk.rect[r][2];
-          const float area = at(o + dy + rw) - at(o + rw) - at(o + dy) + at(o);
-          feat = feat + wk.w[r] * area;
+          v[4 * r] = at(o);
+          v[4 * r + 1] = at(o + rw);
+          v[4 * r + 2] = at(o + dy);
+          v[4 * r + 3] = at(o + dy + rw);
         }
-        const float f_norm = feat * iv[j] / repro_torch::AREA;
+        const float f_norm = norm_feat(wk, v, iv[j], kDense && k < kd);
         acc[j] = acc[j] + (f_norm < wk.theta ? wk.left : wk.right);
       }
     }
@@ -235,6 +258,9 @@ inline size_t smem_bytes(int n_weak, int n_run) {
 // SM busy.  Thread t of a block owns lanes lo + t, lo + t + blockDim.x, ...
 // of its share and evaluates kGroup of them at a time.  The padding lanes
 // [live, cap) are split evenly over all blocks, which write their zeros.
+// kDense: some stage of the run lies below s_dense (the stream's tail);
+// the batched tail launches packed_sums<false>.
+template <bool kDense>
 __global__ void packed_sums(const float* __restrict__ sat, long long n_total,
                             long long n_sat, const int* __restrict__ img,
                             const int* __restrict__ base, const int* __restrict__ stride,
@@ -247,7 +273,8 @@ __global__ void packed_sums(const float* __restrict__ sat, long long n_total,
                             const float* __restrict__ left,
                             const float* __restrict__ right,
                             const int* __restrict__ stage_offsets, int s0, int s1,
-                            int k0, int k1, int lanes_per_thread, int spread) {
+                            int k0, int k1, int s_dense, int lanes_per_thread,
+                            int spread) {
   const int n_run = s1 - s0;
   long long live = cap;
   if (n_live != nullptr) {
@@ -284,6 +311,8 @@ __global__ void packed_sums(const float* __restrict__ sat, long long n_total,
     }
   }
   inside = __syncthreads_and(inside);
+  // classifiers of the run in stages below s_dense (the dense order)
+  const int kd = kDense ? bounds[s_dense >= s1 ? n_run : s_dense - s0] : 0;
 
   const long long last = n_total - 1;
   for (long long gfirst = lo + threadIdx.x; gfirst < hi; gfirst += (long long)kGroup * step) {
@@ -316,11 +345,11 @@ __global__ void packed_sums(const float* __restrict__ sat, long long n_total,
         p[j] = sat + (on[j] ? off[j] : off[0]);
         iv[j] = on[j] ? iv[j] : iv[0];
       }
-      lane_sums_fast<kGroup>(p, st[0], iv, on, wc, modes, bounds, n_run, out, cap, gfirst,
-                             step);
+      lane_sums_fast<kGroup, kDense>(p, st[0], iv, on, wc, modes, bounds, n_run, kd, out,
+                                     cap, gfirst, step);
     } else {
-      lane_sums_clamped<kGroup>(sat, last, off, st, iv, on, wc, bounds, n_run, out, cap,
-                                gfirst, step);
+      lane_sums_clamped<kGroup, kDense>(sat, last, off, st, iv, on, wc, bounds, n_run, kd,
+                                        out, cap, gfirst, step);
     }
   }
 }
@@ -329,7 +358,8 @@ __global__ void packed_sums(const float* __restrict__ sat, long long n_total,
 
 // lanes_per_thread >= 1; threads a multiple of 32 in [32, 1024], lowered to
 // what the kernel's registers allow.  The wrapper maps the plan's lane_block
-// onto both.  n_live may be null (every lane live).
+// onto both.  n_live may be null (every lane live).  Stages below s_dense
+// take the dense kernels' arithmetic (s_dense <= s0: none).
 extern "C" int packed_stage_sums(const float* sat, long long n_total, long long n_sat,
                                  const int* img, const int* base, const int* stride,
                                  const int* ys, const int* xs, const float* inv,
@@ -337,19 +367,22 @@ extern "C" int packed_stage_sums(const float* sat, long long n_total, long long 
                                  const int* rect_xywh, const float* rect_w,
                                  const float* theta, const float* left,
                                  const float* right, const int* stage_offsets, int s0,
-                                 int s1, int k0, int k1, int lanes_per_thread,
-                                 int threads, int device, void* stream) {
+                                 int s1, int k0, int k1, int s_dense,
+                                 int lanes_per_thread, int threads, int device,
+                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (threads < 32 || threads > 1024 || threads % 32 != 0 || lanes_per_thread < 1 ||
       cap <= 0)
     return (int)cudaErrorInvalidValue;
+  // the dense order only where a stage of the run lies below s_dense
+  auto* kernel = s_dense > s0 ? packed_sums<true> : packed_sums<false>;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, packed_sums);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   threads = threads < attr.maxThreadsPerBlock ? threads : attr.maxThreadsPerBlock / 32 * 32;
   const size_t smem = smem_bytes(k1 - k0, s1 - s0);
-  err = repro_torch::reserve_smem(packed_sums, smem);
+  err = repro_torch::reserve_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   // The gathers live on L1 hits, so ask for shared memory for only
   // kMinWarps resident warps' blocks (1 KB of each block is the system's)
@@ -357,7 +390,7 @@ extern "C" int packed_stage_sums(const float* sat, long long n_total, long long 
   // carve-out up to a size the SM supports.
   const size_t blocks = (kMinWarps * 32 + threads - 1) / threads;
   const size_t pct = (blocks * (smem + 1024) * 100 + kMaxSmem - 1) / kMaxSmem;
-  err = cudaFuncSetAttribute(packed_sums, cudaFuncAttributePreferredSharedMemoryCarveout,
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)(pct < 100 ? pct : 100));
   if (err != cudaSuccess) return (int)err;
   int n_sm = 0;
@@ -367,9 +400,9 @@ extern "C" int packed_stage_sums(const float* sat, long long n_total, long long 
   const long long n_blocks = (cap + per_block - 1) / per_block;
   const long long spread = n_blocks < kBusyBlocksPerSm * n_sm ? n_blocks
                                                               : kBusyBlocksPerSm * n_sm;
-  packed_sums<<<(unsigned)n_blocks, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)n_blocks, threads, smem, (cudaStream_t)stream>>>(
       sat, n_total, n_sat, img, base, stride, ys, xs, inv, n_live, out, cap, rect_xywh,
-      rect_w, theta, left, right, stage_offsets, s0, s1, k0, k1, lanes_per_thread,
-      (int)spread);
+      rect_w, theta, left, right, stage_offsets, s0, s1, k0, k1, s_dense,
+      lanes_per_thread, (int)spread);
   return (int)cudaGetLastError();
 }

@@ -4,6 +4,8 @@
 #   fused_head      - kernel A, the fused dense head's tile pass
 #   haar_stage      - kernel B, one stage's dense sums (split head)
 #   packed_window   - kernel C, stage-run sums over a packed window list
+#   tile_change     - the stream's tile planning (plain PyTorch; jnp in the
+#                     reference, no kernel)
 # ops.py = the public wrappers (+ *_ref twins over ref.py); packed_tail.py
 # = the compacted-tail evaluator (gather / bulk / pallas backends).
 from . import ops, packed_tail, ref  # noqa: F401

@@ -17,6 +17,10 @@ Kernels and what they port:
 - C  ``packed_stage_sums``           <- ``packed_stage_sums_kernel``
 - D  ``window_inv_sigma_grid(_batch)`` <- ``window_inv_sigma_kernel``
 
+and the stream's two tile-planning functions, which are jnp in the
+reference (``repro.kernels.tile_change``) and plain PyTorch here, on the
+frame's device: ``tile_change_mask`` and ``changed_window_map``.
+
 ``integral_image(_batch)`` run kernel S and return its first table (the
 padded SAT of the image), as the reference's ``integral_image_kernel``
 wrappers do.  The dense heads take the plan's ``head_tile`` as ``tile``
@@ -37,6 +41,7 @@ from . import fused_head as _fused
 from . import haar_stage as _haar
 from . import packed_window as _packed
 from . import ref
+from . import tile_change as _tc
 from . import window_variance as _wv
 from .autotune import DEFAULT_TILE
 from .integral_image import sat_tables
@@ -52,6 +57,8 @@ __all__ = ["sat_tables", "sat_tables_ref",
            "dense_stage_sums", "dense_stage_sums_ref",
            "dense_stage_sums_batch", "dense_stage_sums_batch_ref",
            "packed_stage_sums", "packed_stage_sums_ref",
+           "tile_change_mask", "tile_change_mask_ref",
+           "changed_window_map", "changed_window_map_ref",
            "launches", "reset_launches"]
 
 
@@ -202,3 +209,38 @@ def packed_stage_sums_ref(cascade: Cascade, s0: int, s1: int,
         cascade.rect_xywh, cascade.rect_w, cascade.wc_threshold,
         cascade.left_val, cascade.right_val, b[s0], rel, ii_flat, img, base,
         stride, ys, xs, inv_sigma)
+
+
+# ------------------------------------------------------- stream tile planning
+def tile_change_mask(prev: torch.Tensor, cur: torch.Tensor,
+                     threshold: float = 0.0, *, tile: int, halo: int = 0,
+                     exact: bool = True):
+    """(changed, scores) tile grids of ``cur`` vs ``prev``: the device
+    twin of the host ``tile_change_scores`` + ``dilate_tiles`` pair."""
+    return _tc.tile_change_mask_kernel(prev, cur, threshold, tile=tile,
+                                       halo=halo, exact=exact)
+
+
+def tile_change_mask_ref(prev: torch.Tensor, cur: torch.Tensor,
+                         threshold: float = 0.0, *, tile: int, halo: int = 0,
+                         exact: bool = True):
+    """Oracle twin of :func:`tile_change_mask`."""
+    return ref.tile_change_mask_ref(prev, cur, threshold, tile=tile,
+                                    halo=halo, exact=exact)
+
+
+def changed_window_map(changed: torch.Tensor, ty0: torch.Tensor,
+                       ty1: torch.Tensor, tx0: torch.Tensor,
+                       tx1: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Flat per-level window recompute mask from a changed-tile grid and
+    the plan's tile-range brackets: the device twin of the host
+    ``changed_window_mask``."""
+    return _tc.changed_window_map_kernel(changed, ty0, ty1, tx0, tx1, valid)
+
+
+def changed_window_map_ref(changed: torch.Tensor, ty0: torch.Tensor,
+                           ty1: torch.Tensor, tx0: torch.Tensor,
+                           tx1: torch.Tensor, valid: torch.Tensor
+                           ) -> torch.Tensor:
+    """Oracle twin of :func:`changed_window_map`."""
+    return ref.changed_window_map_ref(changed, ty0, ty1, tx0, tx1, valid)

@@ -66,9 +66,11 @@ def _lookup(ii_flat: torch.Tensor, img: torch.Tensor,
 
 
 def _bulk_stage_sum(cascade: Cascade, ii_flat, img, base, stride, ys, xs,
-                    inv_sigma, k0: int, k1: int) -> torch.Tensor:
+                    inv_sigma, k0: int, k1: int,
+                    dense: bool = False) -> torch.Tensor:
     """Stage sum with one (K, 3, cap) gather per rectangle corner; the
-    same per-lane arithmetic as the ``gather`` backend."""
+    same per-lane arithmetic as the ``gather`` backend (the dense heads'
+    when ``dense``)."""
     rects = cascade.rect_xywh[k0:k1].long()
     w = cascade.rect_w[k0:k1]
     rx, ry = rects[:, :, 0, None], rects[:, :, 1, None]
@@ -82,12 +84,14 @@ def _bulk_stage_sum(cascade: Cascade, ii_flat, img, base, stride, ys, xs,
         return _lookup(ii_flat, img[None, None, :],
                        base[None, None, :] + y * stride[None, None, :] + x)
 
-    area = g(y1, x1) - g(y0, x1) - g(y1, x0) + g(y0, x0)   # (K, 3, cap)
+    a, b, c, d = g(y0, x0), g(y0, x1), g(y1, x0), g(y1, x1)  # (K, 3, cap)
+    area = (d - b) - (c - a) if dense else d - b - c + a
     feat = torch.zeros((area.shape[0], area.shape[2]), dtype=torch.float32,
                        device=area.device)
     for r in range(rects.shape[1]):
         feat = feat + w[:, r, None] * area[:, r]
-    f_norm = div_rn(feat * inv_sigma[None, :], _AREA)
+    f_norm = (feat * inv_sigma[None, :] * (1.0 / _AREA) if dense
+              else div_rn(feat * inv_sigma[None, :], _AREA))
     votes = torch.where(f_norm < cascade.wc_threshold[k0:k1, None],
                         cascade.left_val[k0:k1, None],
                         cascade.right_val[k0:k1, None])
@@ -101,7 +105,7 @@ def stage_sums(cascade: Cascade, s0: int, s1: int, ii_flat: torch.Tensor,
                img: torch.Tensor, base: torch.Tensor, stride: torch.Tensor,
                ys: torch.Tensor, xs: torch.Tensor, inv_sigma: torch.Tensor,
                *, backend: str = "bulk", n_live: torch.Tensor | None = None,
-               lane_block=None) -> torch.Tensor:
+               lane_block=None, s_dense: int = 0) -> torch.Tensor:
     """(s1 - s0, cap) vote sums for stages ``[s0, s1)`` over a packed list.
 
     One call per tail segment: the caller applies stage thresholds between
@@ -109,17 +113,21 @@ def stage_sums(cascade: Cascade, s0: int, s1: int, ii_flat: torch.Tensor,
     ``n_live`` (0-dim int64 on the device, or ``None``: all lanes) is the
     compaction's live count: every backend gives 0 on lanes at or past it.
     ``lane_block`` is the plan's block shape; only kernel C uses it.
+    Stages below ``s_dense`` take the dense heads' arithmetic (corners
+    ``(d - b) - (c - a)``, ``feat * inv * (1/576)``): the stream's
+    incremental tail passes the dense prefix's length when ``detect``
+    evaluates that prefix with kernels A and B.
     """
     from . import packed_window
     if backend == "pallas":
         return packed_window.stage_sums(
             cascade, s0, s1, ii_flat, img.int(), base.int(), stride.int(),
             ys.int(), xs.int(), inv_sigma, n_live=n_live,
-            lane_block=lane_block)
+            lane_block=lane_block, s_dense=s_dense)
     if backend == "gather":
         return packed_window.stage_sums_plain(
             cascade, s0, s1, ii_flat, img.int(), base.int(), stride.int(),
-            ys.int(), xs.int(), inv_sigma, n_live)
+            ys.int(), xs.int(), inv_sigma, n_live, s_dense)
     if backend != "bulk":
         raise ValueError(f"unknown packed-tail backend: {backend!r} "
                          f"(expected one of {BACKENDS})")
@@ -130,7 +138,7 @@ def stage_sums(cascade: Cascade, s0: int, s1: int, ii_flat: torch.Tensor,
                            device=inv_sigma.device)
     return packed_window.zero_past_live(
         torch.stack([_bulk_stage_sum(cascade, ii_flat, *lanes, inv_sigma,
-                                     b[s], b[s + 1])
+                                     b[s], b[s + 1], s < s_dense)
                      for s in range(s0, s1)]), n_live)
 
 

@@ -24,6 +24,14 @@ On a CUDA tensor it launches ``csrc/packed_window.cu`` (the port of
 ``jnp.take(mode="clip")``), combine corners ``d - b - c + a``, add all
 three rectangles, normalize ``feat * inv / 576`` and add votes in
 ascending k.
+
+``s_dense`` (default 0) gives stages below it the dense kernels'
+arithmetic instead, corners ``(d - b) - (c - a)`` and ``feat * inv *
+(1/576)`` (kernels A and B, :func:`repro_torch.kernels.haar_stage
+.dense_sums_plain`).  The batched tail never passes it; the stream's
+incremental tail evaluates windows from stage 0 and passes the dense
+prefix's length, so its decisions there are those of ``detect``'s dense
+head.
 """
 
 from __future__ import annotations
@@ -41,11 +49,12 @@ __all__ = ["stage_sums", "stage_sums_plain", "block_shape", "zero_past_live",
            "KERNEL"]
 
 _AREA = float(WINDOW * WINDOW)
+_INV_AREA = 1.0 / _AREA
 
 KERNEL = native.Kernel(
     "packed_window.cu", "packed_stage_sums",
     [P, I64, I64, P, P, P, P, P, P, P, P, I32] + CASCADE_ARGTYPES
-    + [I32, I32, I32, I32, I32, I32, I32, P])
+    + [I32, I32, I32, I32, I32, I32, I32, I32, P])
 
 
 def block_shape(lane_block=None) -> tuple[int, int]:
@@ -70,12 +79,13 @@ def stage_sums(cascade: Cascade, s0: int, s1: int, ii_flat: torch.Tensor,
                img: torch.Tensor, base: torch.Tensor, stride: torch.Tensor,
                ys: torch.Tensor, xs: torch.Tensor, inv: torch.Tensor,
                n_live: torch.Tensor | None = None,
-               lane_block=None) -> torch.Tensor:
+               lane_block=None, s_dense: int = 0) -> torch.Tensor:
     """(s1 - s0, cap) vote sums over the packed list (int32 lanes); lanes
-    at or past ``n_live`` get 0."""
+    at or past ``n_live`` get 0; stages below ``s_dense`` in the dense
+    order."""
     if ii_flat.device.type == "cpu":
         return stage_sums_plain(cascade, s0, s1, ii_flat, img, base, stride,
-                                ys, xs, inv, n_live)
+                                ys, xs, inv, n_live, s_dense)
     native.check_cuda(ii_flat, torch.float32, 2, "ii_flat")
     lanes = (("img", img), ("base", base), ("stride", stride), ("ys", ys),
              ("xs", xs))
@@ -97,7 +107,7 @@ def stage_sums(cascade: Cascade, s0: int, s1: int, ii_flat: torch.Tensor,
         KERNEL(ptr(ii_flat), ii_flat.numel(), ii_flat.shape[1], ptr(img),
                ptr(base), ptr(stride), ptr(ys), ptr(xs), ptr(inv),
                None if n_live is None else ptr(n_live), ptr(out), cap,
-               *cascade_ptrs(cascade, ii_flat), s0, s1, k0, k1,
+               *cascade_ptrs(cascade, ii_flat), s0, s1, k0, k1, s_dense,
                lanes_per_thread, threads, ii_flat.device.index,
                stream_of(ii_flat))
     return out
@@ -107,7 +117,8 @@ def stage_sums_plain(cascade: Cascade, s0: int, s1: int,
                      ii_flat: torch.Tensor, img: torch.Tensor,
                      base: torch.Tensor, stride: torch.Tensor,
                      ys: torch.Tensor, xs: torch.Tensor, inv: torch.Tensor,
-                     n_live: torch.Tensor | None = None) -> torch.Tensor:
+                     n_live: torch.Tensor | None = None,
+                     s_dense: int = 0) -> torch.Tensor:
     """Plain PyTorch version of :func:`stage_sums` (same bits; it
     evaluates every lane, then zeroes those at or past ``n_live``)."""
     cap = inv.shape[0]
@@ -125,6 +136,7 @@ def stage_sums_plain(cascade: Cascade, s0: int, s1: int,
         return flat[torch.clamp(off + yy * st + xx, 0, last)]
 
     kb, ke = cascade.bounds[s0], cascade.bounds[s1]
+    k_dense = cascade.bounds[min(max(s_dense, s0), s1)] - kb
     rects = cascade.rect_xywh[kb:ke].tolist()
     weights = cascade.rect_w[kb:ke].tolist()
     theta = cascade.wc_threshold[kb:ke].tolist()
@@ -138,9 +150,11 @@ def stage_sums_plain(cascade: Cascade, s0: int, s1: int,
             for (rx, ry, rw, rh), wr in zip(rects[k], weights[k]):
                 y0, x0 = y + ry, x + rx
                 y1, x1 = y0 + rh, x0 + rw
-                area = at(y1, x1) - at(y0, x1) - at(y1, x0) + at(y0, x0)
+                a, b, c, d = at(y0, x0), at(y0, x1), at(y1, x0), at(y1, x1)
+                area = (d - b) - (c - a) if k < k_dense else d - b - c + a
                 feat = feat + wr * area
-            f_norm = div_rn(feat * inv, _AREA)
+            f_norm = (feat * inv * _INV_AREA if k < k_dense
+                      else div_rn(feat * inv, _AREA))
             acc = acc + torch.where(f_norm < theta[k], left[k], right[k])
         rows.append(acc)
     return zero_past_live(torch.stack(rows), n_live)

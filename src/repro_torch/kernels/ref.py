@@ -5,8 +5,10 @@ These follow the reference oracles' arithmetic, not the kernels': corners
 weak-classifier parameters read as tensors.  Given the same SAT and
 1/sigma they give the reference oracles' bits; against the dense kernels
 (whose stage sums use ``(d - b) - (c - a)`` and ``* (1/576)``) they agree
-to the reference's tolerances.  The tile-change oracles come with the
-streaming slice.
+to the reference's tolerances.  The tile-change oracles are independent
+algorithms, as the reference's: direct per-tile reshape sums instead of
+SAT corner lookups, and a range-indicator integer matmul instead of the
+integer SAT, so a SAT indexing bug cannot hide in its own oracle.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from repro_torch.core.integral import CENTRE, div_rn, inv_sigma_of, rect_sum
 
 __all__ = ["integral_image_ref", "window_inv_sigma_ref",
            "dense_stage_sums_ref", "fused_head_ref", "fused_head_batch_ref",
-           "packed_stage_sums_ref", "dense_stage_sums_batch_ref"]
+           "packed_stage_sums_ref", "dense_stage_sums_batch_ref",
+           "tile_change_mask_ref", "changed_window_map_ref"]
 
 _AREA = float(WINDOW * WINDOW)
 
@@ -122,3 +125,37 @@ def packed_stage_sums_ref(rect_xywh, rect_w, wc_threshold, left_val,
                                     right_val[k])
         rows.append(acc)
     return torch.stack(rows)
+
+
+def tile_change_mask_ref(prev: torch.Tensor, cur: torch.Tensor,
+                         threshold: float, *, tile: int, halo: int = 0,
+                         exact: bool = True):
+    """(changed, scores) per tile via direct zero-padded reshape sums."""
+    from .tile_change import dilate
+    h, w = cur.shape
+    ty, tx = -(-h // tile), -(-w // tile)
+    d = cur.double() - prev.double()
+    pad = (0, tx * tile - w, 0, ty * tile - h)
+    sq = F.pad(d * d, pad).reshape(ty, tile, tx, tile)
+    area = F.pad(torch.ones_like(d), pad).reshape(ty, tile, tx, tile)
+    scores = sq.sum(dim=(1, 3)) / torch.clamp(area.sum(dim=(1, 3)), min=1.0)
+    if exact:
+        changed = F.pad(d != 0.0, pad).reshape(ty, tile, tx, tile).any(
+            dim=3).any(dim=1)
+    else:
+        changed = scores > threshold
+    return dilate(changed, halo), scores.float()
+
+
+def changed_window_map_ref(changed: torch.Tensor, ty0, ty1, tx0, tx1,
+                           valid: torch.Tensor) -> torch.Tensor:
+    """Flat window mask via explicit range-indicator integer matmuls."""
+    ty, tx = changed.shape
+    ar_y = torch.arange(ty, device=changed.device)
+    ar_x = torch.arange(tx, device=changed.device)
+    ry = ((ar_y[None, :] >= ty0.long()[:, None])
+          & (ar_y[None, :] <= ty1.long()[:, None])).long()
+    rx = ((ar_x[None, :] >= tx0.long()[:, None])
+          & (ar_x[None, :] <= tx1.long()[:, None])).long()
+    cnt = ry @ changed.long() @ rx.T
+    return (cnt > 0).reshape(-1) & valid

@@ -53,7 +53,7 @@ __all__ = ["CAP_FLOOR", "BATCH_CAP_FLOOR", "STREAM_CAP_BASE",
            "STREAM_DECODE_CAP",
            "segment_spans", "n_compactions", "level_capacities",
            "shared_capacities", "select_backend", "select_head_mode",
-           "validate_config",
+           "dense_on_kernels", "validate_config",
            "window_limits", "compile_level_plan", "compile_plan",
            "compile_stream_plan",
            "stream_capacity_rung", "stream_budget", "segment_work_units",
@@ -175,6 +175,15 @@ def segment_work_units(plan: CascadePlan) -> tuple[int, ...]:
 
 
 # -------------------------------------------------------- backend decision
+def dense_on_kernels(config, step: int) -> bool:
+    """Whether the dense prefix of a plan with this ``step`` runs on the
+    dense kernels (A or B: ``use_pallas`` and step 1) rather than the plain
+    oracle.  The executors pick their dense evaluator by it, and the
+    stream's tail takes the dense kernels' arithmetic for those stages
+    (``s_dense``) exactly when it holds."""
+    return bool(getattr(config, "use_pallas", False)) and step == 1
+
+
 def select_backend(config, n_windows: int) -> str:
     """Packed-tail backend for a list of ``n_windows`` lanes.
 
@@ -210,7 +219,7 @@ def select_head_mode(config, n_windows: int) -> str:
     ``fused``, as in the reference, so plans stay equal to its own; the
     measured flush times of both heads are in ``PERF.md``.
     """
-    if not (getattr(config, "use_pallas", False) and config.step == 1):
+    if not dense_on_kernels(config, config.step):
         return "split"
     m = getattr(config, "head_mode", "auto")
     if m != "auto":

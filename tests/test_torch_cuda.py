@@ -3,8 +3,9 @@ bit for bit to its plain version on the same inputs (the dense heads A and
 B in every head tile, on ragged grids), a small ``detect_batch`` on the
 card equal to the port's CPU run, through every kernel, and a small
 ``calibrated`` run on the card whose rects and capacities equal the CPU
-run's.  Imports only torch, numpy and the port, so it runs where jax is
-not installed:
+run's; kernel C's dense-order stage prefix, and a small stream on the
+card equal to the port's CPU run.  Imports only torch, numpy and the
+port, so it runs where jax is not installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -179,6 +180,75 @@ def test_packed_kernel_equals_plain_per_block_and_live_count(card,
         m = min(n, cap)
         assert torch.equal(got[:, :m], full[:, :m]), n
         assert not got[:, m:].any(), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_dense", [1, 3, 5])
+def test_packed_kernel_dense_prefix_equals_plain(card, s_dense):
+    """Stages below ``s_dense`` in the dense kernels' order, on the fast
+    and the clamped paths (lanes near the table's end), with a live
+    count; and equal to kernel B's sums over the same windows."""
+    casc = paper_shaped_cascade(0, stage_sizes=SMALL, device=card)
+    rng = np.random.default_rng(12)
+    cap = 5000
+    ii_flat, lanes, inv = _tail_lanes(card, rng, cap)
+    for n_live in (None, torch.tensor(3001, dtype=torch.int64, device=card)):
+        got = packed_window.stage_sums(casc, 0, 5, ii_flat, *lanes, inv,
+                                       n_live=n_live, s_dense=s_dense)
+        assert torch.equal(got, packed_window.stage_sums_plain(
+            casc, 0, 5, ii_flat, *lanes, inv, n_live, s_dense))
+    imgs = torch.as_tensor((rng.random((1, 90, 110)) * 3e4).astype(
+        np.float32), device=card)
+    ii, ii2, iic = integral_image.sat_tables(imgs)
+    inv_g, _ = fused_head.tile_pass(casc, 0, 1, ii, ii2, iic)
+    gy, gx = torch.meshgrid(torch.arange(67, device=card),
+                            torch.arange(87, device=card), indexing="ij")
+    zero = torch.zeros(67 * 87, dtype=torch.int32, device=card)
+    tail = packed_window.stage_sums(
+        casc, 0, 5, ii.reshape(1, -1), zero, zero, zero + 111,
+        gy.reshape(-1).int(), gx.reshape(-1).int(), inv_g.reshape(-1),
+        s_dense=s_dense)
+    for s in range(s_dense):
+        assert torch.equal(tail[s], haar_stage.stage_sums(
+            casc, s, ii, inv_g).reshape(-1)), s
+
+
+@pytest.mark.cuda
+def test_stream_on_card_equals_cpu_and_launches_s_and_c(card):
+    """A small device-state and host-planned stream on the card: the port's
+    CPU run's rects and stats on every frame; the incremental frames
+    launch S and C and no dense kernel."""
+    from repro_torch.stream import StreamConfig, VideoDetector, make_video
+    casc = paper_shaped_cascade(0, stage_sizes=SMALL)
+    cfg = EngineConfig(mode="wave", step=1, scale_factor=1.3, min_neighbors=2,
+                       use_pallas=True, tail_backend="pallas")
+    scfg = StreamConfig(tile=12, keyframe_interval=4, halo=0,
+                        full_refresh_frac=0.9)
+    on_card, on_cpu = Detector(casc, cfg), Detector(casc, cfg, device="cpu")
+    for kind in ("static_cctv", "intermittent_cctv", "moving_face"):
+        frames = [f for f, _ in make_video(kind, n_frames=6, h=96, w=96,
+                                           seed=2)]
+        runs = {}
+        for name, d, dev_state in (("card", on_card, True),
+                                   ("card_host", on_card, False),
+                                   ("cpu", on_cpu, True)):
+            vd = VideoDetector(d, scfg._replace(device_state=dev_state))
+            runs[name] = []
+            for f in frames:
+                ops.reset_launches()
+                rects, st = vd.process(f)
+                runs[name].append((rects, st, ops.launches()))
+        for (rc, sc, counts), (rh, sh, _), (rp, sp, _) in zip(
+                runs["card"], runs["card_host"], runs["cpu"]):
+            assert np.array_equal(rc, rp) and np.array_equal(rh, rp)
+            assert sc == sp and sh == sp
+            if sc.mode == "incremental":
+                assert counts["integral_image"] > 0
+                assert counts["packed_window"] > 0
+                assert counts["fused_head"] == counts["haar_stage"] == 0
+                assert counts["window_variance"] == 0
+        if kind == "static_cctv":
+            assert any(st.mode == "incremental" for _, st, _ in runs["card"])
 
 
 # (B, h, w) stacks: ragged in both grid dims, a 1x1 window grid, a grid
