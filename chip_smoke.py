@@ -61,21 +61,48 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
    bit, on the inputs of that step's C call (the whole cascade, the
    dense-order prefix ``s_dense``, the rung's lanes with the live count),
    and timed there beside its bound (the ``stream_step`` entry of C's row
-   in the kernels line).
+   in the kernels line);
+7. the service: ``repro_torch.serve.DetectorService`` on phase 3's
+   capacity-1.0 detector (the configuration of phase 6's streams) with two
+   pods (big 1.0, LITTLE 0.45), ``max_batch`` 8 and the energy governor,
+   its rates seeded from phase 3's measured flush.  Sixteen one-shot
+   requests (the first eight frames of phase 6's ``static_cctv`` video,
+   twice: the service groups rects, and grouping, quadratic in the raw
+   windows, would take far longer on phase 3's scenes) in one flush give ``detect``'s
+   rects per image, and a repeat flush under the same rates builds no
+   program.  In one flush beside four one-shots, two device-state
+   sessions and one host-planned session over the same frames (phase 6's
+   stream config and decode list) give a lone ``VideoDetector``'s rects
+   and ``FrameStats`` per frame, in order; every pod shard of frames that
+   are all incremental or cached launches no dense kernel and makes at
+   most one ``StreamEngine.incremental`` call.  The background flusher
+   (``start()``, ``max_delay_ms`` 10), stopped with a device-state
+   session and one-shots in flight, completes every request with the
+   same rects.  No request may carry ``error``.  Then ms per flush of the
+   service beside bare ``detect_batch`` of the same sixteen images (with
+   and without grouping), in turns, the latency percentiles, pod shares
+   and the governor's decision; and the paper's modelled pipeline from a
+   profile measured on the card (``work_profile`` ->
+   ``WorkModel.from_profile`` -> ``build_detection_dag`` -> ``simulate``
+   under every policy on the Odroid XU4 and RPi 3B+ power models: their
+   makespans and joules are those models', not the card's).
 
 Every path driven on the card runs with the launch counts set to 0 just
 before it and read just after: each must have launched the kernels of its
 path (fused: S, A, C; split: S, B, C; ``detect``: S, A, C; kernel API: S,
 D; card vs CPU: S, A; calibrate: S, A, B, C; stream, the whole pipelined
 device-state ``static_cctv`` run: S, A on keyframes, C; stream_incremental,
-that stream's incremental frames alone, run one at a time: S and C) and
-none it must not (no engine path launches D; no stream path B; an
-incremental frame no dense kernel).
+that stream's incremental frames alone, run one at a time: S and C;
+service, the one-shot flush: S, A, C; service_stream, the sessions'
+flush: S, A on keyframes and one-shots, C; service_background, the
+background flusher's run: S, A, C) and none it must not (no engine or
+service path launches D; no stream or service path B; an incremental
+frame no dense kernel).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
-line, one ``{"stream": {...}}`` line, and last ``{"ok": true, "device":
-{...}}``; it exits non-zero, with no result line, when there is no CUDA
-device or no checkout around it.
+line, one ``{"stream": {...}}`` line, one ``{"service": {...}}`` line,
+and last ``{"ok": true, "device": {...}}``; it exits non-zero, with no
+result line, when there is no CUDA device or no checkout around it.
 
 Bounds (``bound_ms``) are the larger of the bytes the call must move (each
 input read once, each output written once) over 3.35 TB/s and its float
@@ -88,6 +115,7 @@ add/sub + 1 multiply + 1 add) + normalize (2) + compare, select, add = 20.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -115,6 +143,10 @@ PARAM_BYTES = 72     # one weak classifier's record, as the kernels read it
 STREAM_FRAMES = 16
 STREAM_CONFIG = dict(tile=32, threshold=0.0, halo=1, keyframe_interval=16)
 STREAM_DECODE_CAP = 32768
+# phase 7: the service's pods (name, nominal speed, DVFS cluster) and the
+# frames per stream session
+SERVICE_PODS = (("big", 1.0, "big"), ("little", 0.45, "LITTLE"))
+SERVICE_FRAMES = 8
 
 
 def fail(msg: str) -> int:
@@ -637,6 +669,284 @@ def check_stream(torch, on_path, by_path: dict, smi: str):
                   f"{row['step_ms_events']:.3f} ms by CUDA events, device "
                   f"{row['step_device_ms']:.3f} ms (S {row['step_sat_ms']:.3f}"
                   f", C {row['step_c_ms']:.3f}) [{smi}]")
+    return out, ""
+
+
+def request_errors(reqs, wants, label: str) -> list:
+    """What is wrong with completed requests ``reqs`` against the rects
+    ``wants`` (and ``FrameStats`` where a want is ``(rects, stats)``)."""
+    import numpy as np
+    bad = []
+    for i, (r, want) in enumerate(zip(reqs, wants)):
+        stats = None
+        if isinstance(want, tuple):
+            want, stats = want
+        if not r.done.is_set():
+            bad.append(f"{label} request {i} not done")
+        elif r.error is not None:
+            bad.append(f"{label} request {i}: {type(r.error).__name__}: "
+                       f"{r.error}")
+        elif not np.array_equal(r.rects, want):
+            bad.append(f"{label} request {i}: rects differ")
+        elif stats is not None and r.stats != stats:
+            bad.append(f"{label} request {i}: {r.stats} != {stats}")
+    return bad
+
+
+def spy_stream_shards(svc, ops):
+    """Record, for every pod shard of stream frames ``svc`` runs, the
+    frames' modes, the kernel launches of the shard and the frame counts
+    of its ``StreamEngine.incremental`` calls: ``[(modes, launches,
+    incremental_calls), ...]``."""
+    shards, calls = [], []
+    run_shard = svc._run_stream_shard
+    incremental = svc.stream_engine.incremental
+
+    def inc_spy(frames, *args, **kw):
+        calls.append(len(frames))
+        return incremental(frames, *args, **kw)
+
+    def shard_spy(shard):
+        before, n_calls = ops.launches(), len(calls)
+        run_shard(shard)
+        after = ops.launches()
+        shards.append(([r.stats.mode if r.stats is not None else "error"
+                        for r in shard],
+                       {k: after[k] - before[k] for k in after},
+                       calls[n_calls:]))
+
+    svc.stream_engine.incremental = inc_spy
+    svc._run_stream_shard = shard_spy
+    return shards
+
+
+def service_frames():
+    """Phase 7's images: the first ``SERVICE_FRAMES`` frames of phase 6's
+    seeded ``static_cctv`` video at ``H`` x ``W``, for the one-shots and
+    the stream sessions alike.  The service groups every request's rects,
+    as the reference's does, and grouping (``nms.group_rectangles``) is
+    quadratic in the raw windows: phase 3's scenes keep 1,933-25,989 of
+    them on this random cascade (phase 3 prints them), these frames
+    ~1,400 (phase 7 prints them)."""
+    from repro_torch.stream import make_video
+    return [f for f, _gt in make_video("static_cctv", n_frames=SERVICE_FRAMES,
+                                       h=H, w=W, seed=SEED)]
+
+
+def check_service(torch, on_path, det, scene, flush_ms: float, smi: str):
+    """Phase 7.  ``det`` is phase 3's capacity-1.0 detector, ``scene``
+    one of phase 3's scenes (profiled for the modelled pipeline) and
+    ``flush_ms`` phase 3's measured ms per flush of its scenes.  Returns
+    ``(report, error)``; ``error`` is '' when every check held."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.scheduling import (
+        BotlevScheduler, FIFOScheduler, HEFTScheduler, SequentialScheduler,
+        StaticBlockScheduler, WorkModel, build_detection_dag, odroid_xu4,
+        rpi3b, simulate)
+    from repro_torch.serve import DetectorService, PodSpec, ServiceConfig
+    from repro_torch.stream import StreamConfig, VideoDetector
+    t_phase = time.perf_counter()
+    head_s, head_a, split_b, tail_c, inv_d = (
+        "integral_image", "fused_head", "haar_stage", "packed_window",
+        "window_variance")
+    pods = tuple(PodSpec(*p) for p in SERVICE_PODS)
+    scfg = StreamConfig(**STREAM_CONFIG)
+    dev_cfg = scfg._replace(device_state=True)
+    cfg = ServiceConfig(pods=pods, max_batch=BATCH, governor="energy",
+                        stream_config=scfg)
+    # nominal rates: plan work units over phase 3's seconds per image,
+    # times each pod's speed
+    units = DetectorService(det, cfg)._work_units((H, W))
+    base = units / (flush_ms / 1e3 / BATCH)
+    rates = [p.speed * base for p in pods]
+    out: dict = {"card": smi, "pods": [list(p) for p in SERVICE_PODS],
+                 "governor": cfg.governor, "slo_ms": cfg.slo_ms,
+                 "max_batch": cfg.max_batch, "units_per_image": units,
+                 "seed_rates": rates}
+
+    def service(**kw):
+        svc = DetectorService(det, dataclasses.replace(cfg, **kw))
+        svc.seed_rates(rates)
+        return svc
+
+    def session(svc, config):
+        sess = svc.open_stream(config)
+        # phase 6's decode list (the default would send every incremental
+        # frame of this cascade to a full refresh)
+        sess.video = VideoDetector(det, config, svc.stream_engine,
+                                   decode_cap=STREAM_DECODE_CAP)
+        return sess
+
+    imgs = service_frames()
+    out["raw_windows_per_image"] = [
+        len(r) for r in det.detect_batch(imgs, group=False)]
+    wants = [det.detect(im) for im in imgs]
+    out["rects_per_image"] = [len(r) for r in wants]
+    twice = imgs + imgs
+    # ---- one-shot flush: sixteen requests, rects equal detect's
+    svc = service()
+    reqs = [svc.submit(im) for im in twice]
+    _n, err = on_path("service", svc.flush, (head_s, head_a, tail_c),
+                      (split_b, inv_d))
+    bad = request_errors(reqs, wants + wants, "service")
+    if err or bad:
+        return out, err or "; ".join(bad)
+    builds = det.program_builds
+    svc.seed_rates(rates)       # the same placement, hence the same chunks
+    reqs = [svc.submit(im) for im in twice]
+    svc.flush()
+    bad = request_errors(reqs, wants + wants, "service repeat")
+    if bad:
+        return out, "; ".join(bad)
+    if det.program_builds != builds:
+        return out, (f"a repeat service flush built "
+                     f"{det.program_builds - builds} programs")
+    # ---- ms per flush of sixteen: the service (fresh, rates seeded), bare
+    # detect_batch, and detect_batch without grouping (the host's share),
+    # in turns
+    det.detect_batch(twice, group=False)
+    timed: dict = {"service": [], "detect_batch": [], "ungrouped": []}
+    for label in ("service", "detect_batch", "ungrouped", "ungrouped",
+                  "detect_batch", "service"):
+        if label == "service":
+            svc = service()
+            reqs = [svc.submit(im) for im in twice]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label == "service":
+            svc.flush()
+        else:
+            got = det.detect_batch(twice, group=label == "detect_batch")
+        torch.cuda.synchronize()
+        timed[label].append((time.perf_counter() - t0) * 1e3)
+        bad = []
+        if label == "service":
+            bad = request_errors(reqs, wants + wants, "timed service")
+            st = svc.stats()
+        elif label == "detect_batch":
+            bad = [f"detect_batch image {i}" for i, g in enumerate(got)
+                   if not np.array_equal(g, wants[i % len(wants)])]
+        if bad:
+            return out, "; ".join(bad)
+    ms = {k: sum(v) / len(v) for k, v in timed.items()}
+    out["ms_per_flush"] = ms
+    out["ms_per_flush_runs"] = timed
+    out["imgs_per_s"] = {k: len(twice) / v * 1e3 for k, v in ms.items()}
+    out["latency_ms"] = {"p50": st.latency_ms_p50, "p95": st.latency_ms_p95,
+                         "p99": st.latency_ms_p99}
+    out["pod_shares"] = {p.name: p.images for p in st.pods}
+    out["decision"] = st.energy.last_decision.as_dict()
+    out["stats"] = st.as_dict()
+    print(f"service: {len(twice)} one-shots per flush, {ms['service']:.2f} "
+          f"ms per flush ({out['imgs_per_s']['service']:.1f} imgs/s) "
+          f"against bare detect_batch {ms['detect_batch']:.2f} ms "
+          f"({ms['ungrouped']:.2f} without grouping); latency "
+          f"p50 {st.latency_ms_p50:.2f} p95 {st.latency_ms_p95:.2f} ms; "
+          f"pod shares {out['pod_shares']}; governor "
+          f"{out['decision']['ops']} (modelled, feasible "
+          f"{out['decision']['feasible']}) [{smi}]")
+    # ---- stream sessions over the same frames, beside four one-shots,
+    # in one flush
+    configs = (dev_cfg, dev_cfg, scfg)
+    lone = {}
+    for c in set(configs):
+        vd = VideoDetector(det, c, decode_cap=STREAM_DECODE_CAP)
+        lone[c] = [vd.process(f) for f in imgs]
+    svc = service()
+    sessions = [session(svc, c) for c in configs]
+    shards = spy_stream_shards(svc, ops)
+    frame_reqs = [[] for _ in sessions]
+    for f in imgs:
+        for k, sess in enumerate(sessions):
+            frame_reqs[k].append(sess.submit_frame(f))
+    ones = [svc.submit(im) for im in imgs[:4]]
+    _n, err = on_path("service_stream", svc.flush, (head_s, head_a, tail_c),
+                      (split_b, inv_d))
+    bad = request_errors(ones, wants, "service_stream one-shot")
+    for k, reqs in enumerate(frame_reqs):
+        bad += request_errors(reqs, lone[configs[k]], f"session {k}")
+        if [r.stats.frame_idx for r in reqs if r.stats is not None] != \
+                list(range(SERVICE_FRAMES)):
+            bad.append(f"session {k}: frames out of order")
+    if err or bad:
+        return out, err or "; ".join(bad)
+    quiet = [(modes, n, calls) for modes, n, calls in shards
+             if "incremental" in modes
+             and set(modes) <= {"incremental", "cached"}]
+    loud = [n for _m, n, _c in quiet
+            if n[head_a] or n[split_b] or n[inv_d] or n[head_s] <= 0
+            or n[tail_c] <= 0]
+    many = [calls for _m, _n, calls in shards if len(calls) > 1]
+    if not quiet or loud or many:
+        return out, (f"service_stream: {len(quiet)} incremental shards, "
+                     f"launches {loud} against S and C only, incremental "
+                     f"calls per shard {many}")
+    modes = {}
+    for reqs in frame_reqs:
+        for r in reqs:
+            modes[r.stats.mode] = modes.get(r.stats.mode, 0) + 1
+    out["stream"] = {
+        "sessions": ["device_state", "device_state", "host"],
+        "frames": SERVICE_FRAMES, "modes": modes,
+        "shards": len(shards), "incremental_shards": len(quiet),
+        "incremental_shard_launches": [n for _m, n, _c in quiet],
+        "incremental_calls": [c for _m, _n, c in shards],
+        "stats": svc.stats().stream.as_dict()}
+    print(f"service_stream: 3 sessions x {SERVICE_FRAMES} frames beside 4 "
+          f"one-shots == lone VideoDetector; modes {modes}; "
+          f"{len(quiet)} incremental pod shards launched S and C only")
+    # ---- the background flusher, a device-state session among one-shots
+    svc = service(max_delay_ms=10.0)
+    sess = session(svc, dev_cfg)
+
+    def background():
+        svc.start()
+        try:
+            ones = [svc.submit(im) for im in imgs]
+            frames = [sess.submit_frame(f) for f in imgs]
+        finally:
+            svc.stop()
+        return ones, frames
+
+    (ones, frames), err = on_path("service_background", background,
+                                  (head_s, head_a, tail_c), (split_b, inv_d))
+    bad = (request_errors(ones, wants, "background one-shot")
+           + request_errors(frames, lone[dev_cfg], "background frame"))
+    if err or bad:
+        return out, err or "; ".join(bad)
+    out["background"] = {"requests": len(ones) + len(frames),
+                         "n_done": svc.stats().n_done}
+    print(f"service_background: {len(ones)} one-shots and {len(frames)} "
+          f"device-state frames in flight at stop(): all complete, no error")
+    # ---- the paper's modelled pipeline from a profile measured here
+    prof = det.work_profile(scene)
+    lv = prof["per_level"][0]
+    sizes = det.cascade.stage_sizes()
+    wm = WorkModel.from_profile(sizes, lv["alive_counts"], lv["windows"])
+    dag = build_detection_dag(H, W, sizes, step=det.config.step,
+                              scale_factor=det.config.scale_factor,
+                              work_model=wm)
+    model: dict = {"tasks": len(dag), "total_work": dag.total_work,
+                   "level0_survival": [float(x) for x in wm.survival]}
+    for plat in (odroid_xu4(), rpi3b()):
+        row = {}
+        for policy in (SequentialScheduler, FIFOScheduler,
+                       StaticBlockScheduler, BotlevScheduler, HEFTScheduler):
+            r = simulate(dag, plat, policy())
+            if not (np.isfinite(r.makespan) and np.isfinite(r.energy)
+                    and r.makespan > 0 and r.energy > 0):
+                return out, f"modelled {plat.name} {policy.__name__}: {r}"
+            row[policy.__name__] = {"makespan_s": r.makespan,
+                                    "energy_J": r.energy,
+                                    "avg_power_W": r.avg_power}
+        model[plat.name] = row
+        print(f"modelled pipeline on the {plat.name} power model (not the "
+              f"card): " + ", ".join(
+                  f"{k} {v['makespan_s']:.3f} s {v['energy_J']:.2f} J"
+                  for k, v in row.items()))
+    out["modelled"] = model
+    out["seconds"] = time.perf_counter() - t_phase
     return out, ""
 
 
@@ -1166,6 +1476,14 @@ def main() -> int:
     next(r for r in rows if r["_kernel"] == tail_c)["stream_step"] = \
         stream.pop("step_kernel_c")
 
+    # -------------------------------------------------------- 7. service
+    service, err = check_service(torch, on_path, det_one, imgs[0],
+                                 flush["fused"]["ms_per_flush"], smi)
+    if err:
+        return fail(err)
+    print(f"service phase: {service['seconds']:.1f} s")
+    report["service"] = service
+
     # each kernel's launches are those of the first path that runs it: S, A
     # and C on the fused flush, B on the split flush, D on the kernel API
     launch_path = {split_b: "split", inv_d_k: "kernel_api"}
@@ -1180,6 +1498,7 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"stream": stream}))
+    print(json.dumps({"service": service}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,6 +8,12 @@ in ``.gitignore``).  A library's file name carries a digest of its source,
 the shared header and the flags, so an edited source rebuilds and an
 unchanged one is reused.
 
+One module lock serialises builds and loads, so threads that launch a
+kernel for the first time at once (a service's background flusher and its
+caller) build each library once; ``library_loads()`` counts the libraries
+loaded so far, which lets a caller tell a wall time that included a build
+or load from a warm one.
+
 Flags: ``-fmad=false`` and no ``--use_fast_math`` keep every float
 operation one IEEE-rounded operation in source order (correctly rounded
 ``sqrtf`` and division), which is what makes each kernel equal, bit for
@@ -26,13 +32,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "Kernel", "KERNELS",
-           "build_all", "launches", "reset_launches", "check_cuda"]
+           "build_all", "library_loads", "launches", "reset_launches",
+           "check_cuda"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -43,6 +51,7 @@ SOURCES = ("integral_image.cu", "fused_head.cu", "haar_stage.cu",
            "packed_window.cu", "window_variance.cu")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_build_lock = threading.RLock()     # builds and loads, process-wide
 
 
 def _nvcc() -> str:
@@ -69,40 +78,48 @@ def build_all() -> dict:
     Returns ``{"seconds": wall time, "built": [...], "ptxas": {source:
     compiler report}}``; raises with the compiler's output if one fails.
     """
-    t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for src in SOURCES:
-        target = _library_path(src)
-        if target.exists():
-            continue
-        tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-        procs[src] = (target, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    reports, failed = {}, []
-    for src, (target, tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        reports[src] = out
-        target.with_suffix(".log").write_text(out)
-        if proc.returncode != 0:
-            failed.append(f"{src} (exit {proc.returncode}):\n{out}")
-        else:
-            os.replace(tmp, target)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return {"seconds": time.perf_counter() - t0, "built": list(procs),
-            "ptxas": reports}
+    with _build_lock:
+        t0 = time.perf_counter()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for src in SOURCES:
+            target = _library_path(src)
+            if target.exists():
+                continue
+            tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+            procs[src] = (target, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        reports, failed = {}, []
+        for src, (target, tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            reports[src] = out
+            target.with_suffix(".log").write_text(out)
+            if proc.returncode != 0:
+                failed.append(f"{src} (exit {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, target)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        return {"seconds": time.perf_counter() - t0, "built": list(procs),
+                "ptxas": reports}
 
 
 def _library(source: str) -> ctypes.CDLL:
-    if source not in _libs:
-        path = _library_path(source)
-        if not path.exists():
-            build_all()
-        _libs[source] = ctypes.CDLL(str(path))
-    return _libs[source]
+    with _build_lock:
+        if source not in _libs:
+            path = _library_path(source)
+            if not path.exists():
+                build_all()
+            _libs[source] = ctypes.CDLL(str(path))
+        return _libs[source]
+
+
+def library_loads() -> int:
+    """Kernel libraries loaded in this process so far (each load follows
+    its build when the library was missing)."""
+    return len(_libs)
 
 
 class Kernel:

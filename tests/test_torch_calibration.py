@@ -12,15 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import Detector as RDetector, EngineConfig as RConfig
-from repro.core import calibrate_capacities as r_calibrate
-from repro.core import cascade as rcascade
-from repro.core.training.data import render_scene
-from repro.kernels import packed_tail as rtail
+torch.set_num_threads(1)
 
-from repro_torch.core import Detector, EngineConfig, calibrate_capacities
-from repro_torch.core import cascade as tcascade
-from repro_torch.kernels import autotune, packed_tail
+from repro.core import Detector as RDetector, EngineConfig as RConfig  # noqa: E402
+from repro.core import calibrate_capacities as r_calibrate  # noqa: E402
+from repro.core import cascade as rcascade  # noqa: E402
+from repro.core.training.data import render_scene  # noqa: E402
+from repro.kernels import packed_tail as rtail  # noqa: E402
+
+from repro_torch.core import Detector, EngineConfig, calibrate_capacities  # noqa: E402
+from repro_torch.core import cascade as tcascade  # noqa: E402
+from repro_torch.kernels import autotune, packed_tail  # noqa: E402
 
 SMALL = [3, 4, 5, 6, 8]
 RCASC = rcascade.paper_shaped_cascade(0, stage_sizes=SMALL)

@@ -13,21 +13,23 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import cascade as rcascade
-from repro.core import features as rfeatures
-from repro.core import integral as rintegral
-from repro.core import nms as rnms
-from repro.core import pyramid as rpyramid
-from repro.core.training import data as rdata
-from repro.configs.viola_jones import DEFAULT_PRETRAINED
+torch.set_num_threads(1)
 
-from repro_torch.core import cascade as tcascade
-from repro_torch.core import features as tfeatures
-from repro_torch.core import integral as tintegral
-from repro_torch.core import nms as tnms
-from repro_torch.core import pyramid as tpyramid
-from repro_torch.core.training import data as tdata
-from repro_torch.configs import viola_jones as tvj
+from repro.core import cascade as rcascade  # noqa: E402
+from repro.core import features as rfeatures  # noqa: E402
+from repro.core import integral as rintegral  # noqa: E402
+from repro.core import nms as rnms  # noqa: E402
+from repro.core import pyramid as rpyramid  # noqa: E402
+from repro.core.training import data as rdata  # noqa: E402
+from repro.configs.viola_jones import DEFAULT_PRETRAINED  # noqa: E402
+
+from repro_torch.core import cascade as tcascade  # noqa: E402
+from repro_torch.core import features as tfeatures  # noqa: E402
+from repro_torch.core import integral as tintegral  # noqa: E402
+from repro_torch.core import nms as tnms  # noqa: E402
+from repro_torch.core import pyramid as tpyramid  # noqa: E402
+from repro_torch.core.training import data as tdata  # noqa: E402
+from repro_torch.configs import viola_jones as tvj  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = [3, 4, 5, 6, 8]

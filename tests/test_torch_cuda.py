@@ -3,9 +3,12 @@ bit for bit to its plain version on the same inputs (the dense heads A and
 B in every head tile, on ragged grids), a small ``detect_batch`` on the
 card equal to the port's CPU run, through every kernel, and a small
 ``calibrated`` run on the card whose rects and capacities equal the CPU
-run's; kernel C's dense-order stage prefix, and a small stream on the
-card equal to the port's CPU run.  Imports only torch, numpy and the
-port, so it runs where jax is not installed:
+run's; kernel C's dense-order stage prefix, a small stream on the
+card equal to the port's CPU run, a governed two-pod service flush on
+the card equal to the CPU's rects, shares and modelled joules under the
+same seeded rates, and a device-state session flushed by the service's
+background thread.  Imports only torch, numpy and the port, so it runs
+where jax is not installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -16,13 +19,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade
-from repro_torch.core.training.data import render_scene
-from repro_torch.kernels import fused_head, haar_stage, integral_image, ops
-from repro_torch.kernels import packed_window, window_variance
-from repro_torch.kernels.autotune import (HEAD_TILE_CANDIDATES,
+torch.set_num_threads(1)
+
+from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade  # noqa: E402
+from repro_torch.core.training.data import render_scene  # noqa: E402
+from repro_torch.kernels import fused_head, haar_stage, integral_image, ops  # noqa: E402
+from repro_torch.kernels import packed_window, window_variance  # noqa: E402
+from repro_torch.kernels.autotune import (HEAD_TILE_CANDIDATES,  # noqa: E402
                                           LANE_BLOCK_CANDIDATES)
-from repro_torch.kernels.haar_stage import head_block_shape
+from repro_torch.kernels.haar_stage import head_block_shape  # noqa: E402
 
 SMALL = [3, 4, 5, 6, 8]
 
@@ -330,3 +335,87 @@ def test_plan_head_tile_reaches_the_launch(card, tile, head):
     on_cpu = Detector(casc, cfg, device="cpu").detect_batch(imgs, group=False)
     for a, c in zip(on_card, on_cpu):
         assert np.array_equal(a, c)
+
+
+# ---------------------------------------------------------------- service
+SERVICE_CFG = EngineConfig(mode="wave", step=1, scale_factor=1.3,
+                           min_neighbors=2, use_pallas=True, pad_multiple=32,
+                           tail_backend="pallas")
+
+
+def _governed_service(detector, **kw):
+    from repro_torch.serve import DetectorService, PodSpec, ServiceConfig
+    svc = DetectorService(detector, ServiceConfig(
+        pods=(PodSpec("big", 1.0, "big"), PodSpec("little", 0.45, "LITTLE")),
+        governor="energy", slo_ms=200.0, batch_sizes=(2,), **kw))
+    svc.seed_rates([4.0e5, 1.8e5])
+    return svc
+
+
+@pytest.mark.cuda
+def test_governed_service_flush_on_card_equals_cpu(card):
+    """A fresh governed two-pod service on the card, rates seeded as on
+    the CPU: the CPU run's rects, shares, decision and modelled joules;
+    the flush launches S, A and C and neither B nor D."""
+    casc = paper_shaped_cascade(0, stage_sizes=SMALL)
+    rng = np.random.default_rng(11)
+    imgs = [render_scene(rng, 64, 64, n_faces=1)[0] for _ in range(8)]
+    runs = {}
+    for name, dev in (("card", None), ("cpu", "cpu")):
+        svc = _governed_service(Detector(casc, SERVICE_CFG, device=dev))
+        reqs = [svc.submit(im) for im in imgs]
+        ops.reset_launches()
+        svc.flush()
+        counts = ops.launches()
+        assert all(r.error is None for r in reqs)
+        runs[name] = ([r.result() for r in reqs], svc.stats().as_dict(),
+                      counts)
+    (card_rects, card_st, counts), (cpu_rects, cpu_st, _) = (runs["card"],
+                                                              runs["cpu"])
+    for a, c in zip(card_rects, cpu_rects):
+        assert np.array_equal(a, c)
+    assert card_st["energy"] == cpu_st["energy"]
+    assert card_st["last_plan"] == cpu_st["last_plan"]
+    assert [p["images"] for p in card_st["pods"]] == \
+        [p["images"] for p in cpu_st["pods"]]
+    for k in ("integral_image", "fused_head", "packed_window"):
+        assert counts[k] > 0, k
+    assert counts["haar_stage"] == counts["window_variance"] == 0
+
+
+@pytest.mark.cuda
+def test_device_state_session_flushed_by_background_thread(card):
+    """A device-state stream session and one-shots flushed by the
+    service's ``start()`` thread on the card: every request completes
+    without error, the frames equal a lone ``VideoDetector`` on the CPU
+    (rects and ``FrameStats``), and the one-shots equal ``detect``."""
+    from repro_torch.serve import DetectorService, ServiceConfig
+    from repro_torch.stream import StreamConfig, VideoDetector, make_video
+    casc = paper_shaped_cascade(0, stage_sizes=SMALL)
+    scfg = StreamConfig(tile=12, keyframe_interval=4, halo=0,
+                        full_refresh_frac=0.9, device_state=True)
+    frames = [f for f, _ in make_video("static_cctv", n_frames=6, h=96,
+                                       w=96, seed=2)]
+    rng = np.random.default_rng(3)
+    imgs = [render_scene(rng, 96, 96, n_faces=1)[0] for _ in range(3)]
+    on_card = Detector(casc, SERVICE_CFG)
+    on_cpu = Detector(casc, SERVICE_CFG, device="cpu")
+    svc = DetectorService(on_card, ServiceConfig(max_batch=2,
+                                                 max_delay_ms=10.0,
+                                                 stream_config=scfg))
+    sess = svc.open_stream()
+    svc.start()
+    try:
+        ones = [svc.submit(im) for im in imgs]
+        reqs = [sess.submit_frame(f) for f in frames]
+    finally:
+        svc.stop()
+    lone = VideoDetector(on_cpu, scfg)
+    for r, f in zip(reqs, frames):
+        rects, st = lone.process(f)
+        assert r.done.is_set() and r.error is None
+        assert np.array_equal(r.result(), rects) and r.stats == st
+    assert any(r.stats.mode == "incremental" for r in reqs)
+    for r, im in zip(ones, imgs):
+        assert r.error is None
+        assert np.array_equal(r.result(), on_cpu.detect(im))

@@ -16,16 +16,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import Detector as RDetector, EngineConfig as RConfig
-from repro.core import cascade as rcascade, nms as rnms
-from repro.core.training.data import render_scene
+torch.set_num_threads(1)
 
-from repro_torch.core import Detector, EngineConfig
-from repro_torch.core import cascade as tcascade
-from repro_torch.core.engine import nonzero_static, resolve_device
-from repro_torch.kernels import autotune, ops, packed_window
+from repro.core import Detector as RDetector, EngineConfig as RConfig  # noqa: E402
+from repro.core import cascade as rcascade, nms as rnms  # noqa: E402
+from repro.core.training.data import render_scene  # noqa: E402
 
-from helpers import all_pass_cascade
+from repro_torch.core import Detector, EngineConfig  # noqa: E402
+from repro_torch.core import cascade as tcascade  # noqa: E402
+from repro_torch.core.engine import nonzero_static, resolve_device  # noqa: E402
+from repro_torch.kernels import autotune, ops, packed_window  # noqa: E402
+
+from helpers import all_pass_cascade  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = [3, 4, 5, 6, 8]

@@ -11,17 +11,19 @@ import numpy as np
 import pytest
 import torch
 
-import repro.plan as rplan
-from repro.core import Detector as RDetector, EngineConfig as RConfig
-from repro.core import cascade as rcascade
-from repro.core.training.data import render_scene
+torch.set_num_threads(1)
 
-import repro_torch.plan as tplan
-from repro_torch.core import Detector, EngineConfig
-from repro_torch.core import cascade as tcascade
-from repro_torch.kernels import autotune, integral_image, ops
-from repro_torch.kernels.autotune import DEFAULT_TILE, HEAD_TILE_CANDIDATES
-from repro_torch.kernels.haar_stage import HEAD_ROWS, head_block_shape
+import repro.plan as rplan  # noqa: E402
+from repro.core import Detector as RDetector, EngineConfig as RConfig  # noqa: E402
+from repro.core import cascade as rcascade  # noqa: E402
+from repro.core.training.data import render_scene  # noqa: E402
+
+import repro_torch.plan as tplan  # noqa: E402
+from repro_torch.core import Detector, EngineConfig  # noqa: E402
+from repro_torch.core import cascade as tcascade  # noqa: E402
+from repro_torch.kernels import autotune, integral_image, ops  # noqa: E402
+from repro_torch.kernels.autotune import DEFAULT_TILE, HEAD_TILE_CANDIDATES  # noqa: E402
+from repro_torch.kernels.haar_stage import HEAD_ROWS, head_block_shape  # noqa: E402
 
 SMALL = [3, 4, 5, 6, 8]
 RCASC = rcascade.paper_shaped_cascade(0, stage_sizes=SMALL)

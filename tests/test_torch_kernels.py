@@ -17,17 +17,19 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import cascade as rcascade
-from repro.core import integral as rintegral
-from repro.kernels import ops as rops
-from repro.kernels import packed_tail as rtail
-from repro.kernels import ref as rref
+torch.set_num_threads(1)
 
-from repro_torch.core import cascade as tcascade
-from repro_torch.core import integral as tintegral
-from repro_torch.kernels import autotune, native, ops, packed_tail
-from repro_torch.kernels import fused_head, haar_stage, integral_image
-from repro_torch.kernels import packed_window, window_variance
+from repro.core import cascade as rcascade  # noqa: E402
+from repro.core import integral as rintegral  # noqa: E402
+from repro.kernels import ops as rops  # noqa: E402
+from repro.kernels import packed_tail as rtail  # noqa: E402
+from repro.kernels import ref as rref  # noqa: E402
+
+from repro_torch.core import cascade as tcascade  # noqa: E402
+from repro_torch.core import integral as tintegral  # noqa: E402
+from repro_torch.kernels import autotune, native, ops, packed_tail  # noqa: E402
+from repro_torch.kernels import fused_head, haar_stage, integral_image  # noqa: E402
+from repro_torch.kernels import packed_window, window_variance  # noqa: E402
 
 SMALL = [3, 4, 5, 6, 8]
 RCASC = rcascade.paper_shaped_cascade(0, stage_sizes=SMALL)

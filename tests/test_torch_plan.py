@@ -5,12 +5,15 @@ import itertools
 
 import numpy as np
 import pytest
+import torch
 
-import repro.plan as rplan
-from repro.core.engine import EngineConfig as RConfig
+torch.set_num_threads(1)
 
-import repro_torch.plan as tplan
-from repro_torch.core.engine import EngineConfig as TConfig
+import repro.plan as rplan  # noqa: E402
+from repro.core.engine import EngineConfig as RConfig  # noqa: E402
+
+import repro_torch.plan as tplan  # noqa: E402
+from repro_torch.core.engine import EngineConfig as TConfig  # noqa: E402
 
 N_STAGES = 25
 

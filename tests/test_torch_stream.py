@@ -15,29 +15,31 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import Detector as RDetector, EngineConfig as RConfig
-from repro.core import paper_shaped_cascade as r_cascade
-from repro.kernels import ops as rops
-from repro.plan import StreamGeometry as RGeometry
-from repro.stream import (VideoDetector as RVideo, StreamConfig as RStream,
-                          make_video as r_make_video)
-from repro.stream import tiles as rtiles
-from repro.stream.engine import _packed_inv_sigma as r_packed_inv_sigma
+torch.set_num_threads(1)
 
-from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade
-from repro_torch.core.cascade import WINDOW
-from repro_torch.core.integral import (div_rn, integral_images,
+from repro.core import Detector as RDetector, EngineConfig as RConfig  # noqa: E402
+from repro.core import paper_shaped_cascade as r_cascade  # noqa: E402
+from repro.kernels import ops as rops  # noqa: E402
+from repro.plan import StreamGeometry as RGeometry  # noqa: E402
+from repro.stream import (VideoDetector as RVideo, StreamConfig as RStream,  # noqa: E402
+                          make_video as r_make_video)
+from repro.stream import tiles as rtiles  # noqa: E402
+from repro.stream.engine import _packed_inv_sigma as r_packed_inv_sigma  # noqa: E402
+
+from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade  # noqa: E402
+from repro_torch.core.cascade import WINDOW  # noqa: E402
+from repro_torch.core.integral import (div_rn, integral_images,  # noqa: E402
                                       window_inv_sigma)
-from repro_torch.core.pyramid import downscale_indices
-from repro_torch.kernels import haar_stage, ops, packed_tail
-from repro_torch.plan import (STREAM_CAP_BASE, StreamGeometry, compile_plan,
+from repro_torch.core.pyramid import downscale_indices  # noqa: E402
+from repro_torch.kernels import haar_stage, ops, packed_tail  # noqa: E402
+from repro_torch.plan import (STREAM_CAP_BASE, StreamGeometry, compile_plan,  # noqa: E402
                               dense_on_kernels)
-from repro_torch.stream import (SCENARIOS, StreamConfig, StreamEngine,
+from repro_torch.stream import (SCENARIOS, StreamConfig, StreamEngine,  # noqa: E402
                                 VideoDetector, changed_window_mask,
                                 dilate_tiles, level_windows_from_raw,
                                 make_video, tile_change_scores,
                                 tile_grid_shape)
-from repro_torch.stream.engine import _packed_inv_sigma
+from repro_torch.stream.engine import _packed_inv_sigma  # noqa: E402
 
 SMALL = [3, 4, 5, 6, 8]
 KW = dict(mode="wave", step=2, scale_factor=1.3, min_neighbors=2)

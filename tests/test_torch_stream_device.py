@@ -12,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade
-from repro_torch.kernels import packed_tail
-from repro_torch.stream import (SCENARIOS, StreamConfig, StreamEngine,
+torch.set_num_threads(1)
+
+from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade  # noqa: E402
+from repro_torch.kernels import packed_tail  # noqa: E402
+from repro_torch.stream import (SCENARIOS, StreamConfig, StreamEngine,  # noqa: E402
                                 VideoDetector, make_video)
 
 SMALL = [3, 4, 5, 6, 8]
