@@ -85,7 +85,23 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
    profile measured on the card (``work_profile`` ->
    ``WorkModel.from_profile`` -> ``build_detection_dag`` -> ``simulate``
    under every policy on the Odroid XU4 and RPi 3B+ power models: their
-   makespans and joules are those models', not the card's).
+   makespans and joules are those models', not the card's);
+8. the fleet: ``repro_torch.serve.FleetScheduler`` over phase 7's service
+   (its capacity the service's seeded rates), four sessions of phase 6's
+   ``static_cctv`` and ``moving_face`` frames at 480x640: admissions up
+   to and past the headroom, an overload that degrades best_effort to the
+   ladder's cap before standard and never realtime, ``FLEET_FRAMES``
+   frames per session flushed tier by tier (each session equal to a lone
+   ``VideoDetector`` on its stretched config: rects, ``FrameStats``,
+   order), shedding only once the ladder is exhausted and only
+   best_effort, and recovery with hysteresis; ms per fleet flush and the
+   launches of S, A and C per flush (``check_fleet``);
+9. training: ``repro_torch.core.training.train_cascade`` at
+   ``scripts/train_pretrained.py``'s widths (``n_stages`` cut to 3) on
+   the card and on the CPU, the same stumps; seconds per stage, the
+   profiler's device ms of one ``feature_values`` call and of one
+   boosting round; then the trained cascade through ``detect_batch`` on
+   the card (S, A, C) and on the CPU, equal rects (``check_training``).
 
 Every path driven on the card runs with the launch counts set to 0 just
 before it and read just after: each must have launched the kernels of its
@@ -95,14 +111,19 @@ device-state ``static_cctv`` run: S, A on keyframes, C; stream_incremental,
 that stream's incremental frames alone, run one at a time: S and C;
 service, the one-shot flush: S, A, C; service_stream, the sessions'
 flush: S, A on keyframes and one-shots, C; service_background, the
-background flusher's run: S, A, C) and none it must not (no engine or
-service path launches D; no stream or service path B; an incremental
-frame no dense kernel).
+background flusher's run: S, A, C; fleet, the fleet's frames: S, A on
+keyframes, C; trained, the trained cascade's flush: S, A, C) and none it
+must not (no engine, service or fleet path launches D; no stream,
+service or fleet path B; an incremental frame no dense kernel).
+
+Device times come from ``profiled_ms``, which divides a trace's device
+time by the launches the trace holds, not by the calls requested.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
-line, one ``{"stream": {...}}`` line, one ``{"service": {...}}`` line,
-and last ``{"ok": true, "device": {...}}``; it exits non-zero, with no
-result line, when there is no CUDA device or no checkout around it.
+line, one ``{"stream": {...}}``, ``{"service": {...}}``, ``{"fleet":
+{...}}`` and ``{"training": {...}}`` line each, and last ``{"ok": true,
+"device": {...}}``; it exits non-zero, with no result line, when there is
+no CUDA device or no checkout around it.
 
 Bounds (``bound_ms``) are the larger of the bytes the call must move (each
 input read once, each output written once) over 3.35 TB/s and its float
@@ -147,6 +168,17 @@ STREAM_DECODE_CAP = 32768
 # frames per stream session
 SERVICE_PODS = (("big", 1.0, "big"), ("little", 0.45, "LITTLE"))
 SERVICE_FRAMES = 8
+# phase 8: the fleet's sessions' stream config (phase 6's, with a keyframe
+# every other frame, so the ladder's stretched cadence shows) and frames
+FLEET_STREAM = dict(STREAM_CONFIG, keyframe_interval=2)
+FLEET_FRAMES = 6
+# phase 9: scripts/train_pretrained.py's training widths, n_stages cut from
+# 14 to 3 for time; card vs CPU tolerance; face scenes for detection
+TRAIN_CONFIG = dict(n_stages=3, n_pos=1200, n_neg=1200, max_features=3500,
+                    max_weak_per_stage=60, stage_fpr=0.4, stage_dr=0.997,
+                    seed=7)
+TRAIN_RTOL = 1e-6
+TRAIN_SCENES = 3
 
 
 def fail(msg: str) -> int:
@@ -223,27 +255,63 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# each hand kernel's entry name (what ``kernel`` filters a trace by) and
+# the module whose wrapper counts its launches
+KERNEL_ENTRIES = {"sat_chained": "integral_image", "fused_tiles": "fused_head",
+                  "stage_sums": "haar_stage", "packed_sums": "packed_window",
+                  "inv_sigma": "window_variance"}
+
+
 def profiled_ms(torch, fn, reps: int, kernel: str = "") -> float:
-    """Mean device time per call of ``fn`` over ``reps`` calls (one warm-up
-    call first) of every kernel it launches whose name contains ``kernel``
-    (all of them by default), from ``torch.profiler``: the device's own
-    time, which a clock around back-to-back calls misses when launching a
-    call takes the host longer than the device takes to run it.  A profile
-    whose trace holds no device time is taken again; after three, the call
-    is timed with CUDA events instead, and a line says so."""
+    """Mean device time per call of ``fn`` (one warm-up call first) of
+    every kernel it launches whose name contains ``kernel`` (all of them by
+    default), from ``torch.profiler``: the device's own time, which a clock
+    around back-to-back calls misses when launching a call takes the host
+    longer than the device takes to run it.
+
+    The time is counted per traced launch, not per requested call: a
+    trace of ``reps`` calls gives the device time and the launches it
+    holds (``count`` in ``key_averages()``), and the result is that time
+    over those launches, times the launches per call.  A trace can drop
+    events: one kept a single launch of kernel C's ten, and dividing by
+    the ten calls gave a tenth of the kernel's time.  For a hand kernel
+    (``kernel`` one of :data:`KERNEL_ENTRIES`) the launches per call are
+    its wrapper's count over the warm-up call; otherwise the larger of a
+    one-call trace's count and the ``reps`` trace's count over ``reps``.
+    A line says so whenever the trace holds other than ``reps`` times the
+    launches per call.  A trace with no device time is taken again; after
+    three, the call is timed with CUDA events instead, and a line says
+    so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+    from repro_torch.kernels import ops
+
+    def trace(n):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and kernel in e.key)
-        if total > 0:
-            return total / reps / 1e3
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+        return (sum(e.self_device_time_total for e in ev),
+                sum(e.count for e in ev))
+
+    module = KERNEL_ENTRIES.get(kernel)
+    before = ops.launches()
+    fn()
+    torch.cuda.synchronize()
+    known = ops.launches()[module] - before[module] if module else 0
+    for _ in range(3):
+        one = known or trace(1)[1]
+        total, count = trace(reps)
+        if total > 0 and count > 0:
+            per_call = known or max(one, count / reps)
+            if count != reps * per_call:
+                print(f"chip_smoke: the profiler traced {count} launches of "
+                      f"{kernel or 'the call'} in {reps} calls of "
+                      f"{per_call:g} launches: timed per traced launch")
+            return total / count * per_call / 1e3
     print(f"chip_smoke: the profiler saw no device time of "
           f"{kernel or 'the call'}; timed with CUDA events instead")
     return cuda_ms(torch, fn, reps)
@@ -407,7 +475,7 @@ def check_stream_step_c(torch, fn, smi: str):
     entry = {"max_abs_err": err, "stages": [s0, s1], "s_dense": s_dense,
              "weak": k, "lanes": cap, "live_lanes": live,
              "ms": profiled_ms(torch, lambda: packed_window.stage_sums(
-                 *args, **kw), 10),
+                 *args, **kw), 10, "packed_sums"),
              "plain_ms": cuda_ms(torch, lambda: packed_window.stage_sums_plain(
                  *args, n_live, s_dense), 1),
              "bound_ms": b_ms, "bound_by": b_by}
@@ -624,6 +692,12 @@ def check_stream(torch, on_path, by_path: dict, smi: str):
             out["step_kernel_c"], err = check_stream_step_c(torch, fn, smi)
             if err:
                 return out, err
+            row["step_c_ratio"] = (out["step_kernel_c"]["ms"]
+                                   / row["step_c_ms"])
+            print(f"  kernel C on the replayed step's inputs "
+                  f"{out['step_kernel_c']['ms']:.4f} ms against C inside the"
+                  f" step {row['step_c_ms']:.4f} ms (x{row['step_c_ratio']:.3f}"
+                  f") [{smi}]")
         if kind == "intermittent_cctv" and modes["cached"] < 1:
             return out, "intermittent_cctv had no cached frame"
         # ms per frame in turns: the pipelined device-state stream (a new
@@ -950,6 +1024,396 @@ def check_service(torch, on_path, det, scene, flush_ms: float, smi: str):
     return out, ""
 
 
+def check_fleet(torch, on_path, det, flush_ms: float, smi: str):
+    """Phase 8.  ``det`` and ``flush_ms`` are phase 7's.  Returns
+    ``(report, error)``; ``error`` is '' when every check held.
+
+    Phase 7's service (two pods, the energy governor, rates seeded from
+    phase 3's flush) under a :class:`FleetScheduler`, sessions on
+    ``FLEET_STREAM`` (phase 6's stream config with a keyframe every
+    ``keyframe_interval`` frames, so the ladder's stretched cadence shows
+    within ``FLEET_FRAMES`` frames) and phase 6's decode list:
+
+    - admission: three sessions (realtime, standard, best_effort) at an
+      fps that fits three in the headroom, a fourth rejected, a fifth
+      (best_effort, a tenth of the rate) admitted into what is left;
+    - overload (every session at a full refresh per frame, twice the
+      rate): ``rebalance`` degrades both best_effort sessions to the
+      ladder's cap before it touches standard, and never realtime;
+    - frames: every session's ``FLEET_FRAMES`` frames, one fleet flush
+      per frame, each flush one service flush per tier in
+      ``SLO_TIERS`` order carrying that tier's frames only; each session
+      equals a lone ``VideoDetector`` on its stretched config (rects,
+      ``FrameStats``, order);
+    - shedding: a best_effort frame is not shed while the ladder has
+      room; once every degradable session sits at the cap and demand
+      exceeds capacity, best_effort frames are shed and standard and
+      realtime frames are not;
+    - recovery: at a demand between ``restore_margin`` times the budget
+      and the budget nothing moves (hysteresis); below it, ``rebalance``
+      restores every level to 0, one ladder step per session per call."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (DetectorService, FleetScheduler, PodSpec,
+                                   ServiceConfig, SLO_TIERS)
+    from repro_torch.stream import StreamConfig, VideoDetector, make_video
+    t_phase = time.perf_counter()
+    head_s, head_a, split_b, tail_c, inv_d = (
+        "integral_image", "fused_head", "haar_stage", "packed_window",
+        "window_variance")
+    fcfg = StreamConfig(**FLEET_STREAM)
+    dev_cfg = fcfg._replace(device_state=True)
+    pods = tuple(PodSpec(*p) for p in SERVICE_PODS)
+    svc = DetectorService(det, ServiceConfig(
+        pods=pods, max_batch=BATCH, governor="energy", stream_config=fcfg))
+    units = svc._work_units((H, W))
+    base = units / (flush_ms / 1e3 / BATCH)
+    svc.seed_rates([p.speed * base for p in pods])
+    fleet = FleetScheduler(svc)
+    fps = fleet.budget_units_per_s / units / 3.5
+    out: dict = {"card": smi, "frames": FLEET_FRAMES, "hw": [H, W],
+                 "stream_config": FLEET_STREAM, "units_per_frame": units,
+                 "capacity_units_per_s": fleet.capacity_units_per_s,
+                 "fps": fps}
+    videos = {kind: [f for f, _gt in make_video(kind, n_frames=FLEET_FRAMES,
+                                                h=H, w=W, seed=SEED)]
+              for kind in ("static_cctv", "moving_face")}
+    plan = (("realtime", dev_cfg, "static_cctv", 1.0),
+            ("standard", fcfg, "static_cctv", 1.0),
+            ("best_effort", dev_cfg, "static_cctv", 1.0),
+            ("standard", fcfg, "static_cctv", 1.0),
+            ("best_effort", fcfg, "moving_face", 0.1))
+    admitted, sessions = [], []
+    for tier, cfg, kind, rate in plan:
+        fs = fleet.admit((H, W), fps * rate, tier=tier, tenant=kind,
+                         stream_config=cfg)
+        admitted.append(fs is not None)
+        if fs is not None:
+            # phase 6's decode list (the default would send every
+            # incremental frame of this cascade to a full refresh)
+            fs.session.video = VideoDetector(det, cfg, svc.stream_engine,
+                                             decode_cap=STREAM_DECODE_CAP)
+            sessions.append((fs, kind))
+    out["admitted"] = admitted
+    if admitted != [True, True, True, False, True]:
+        return out, f"fleet admissions {admitted}, not 3 then a rejection"
+    rt, st, be, be2 = (fs for fs, _kind in sessions)
+    cap = fcfg.max_degrade_level
+
+    def levels():
+        return [fs.degrade_level for fs, _kind in sessions]
+
+    # ---- overload: best_effort to the cap first, realtime never
+    for fs, _kind in sessions:
+        fs.note_work_frac(1.0)
+        fs.fps *= 2.0
+    step = fleet.rebalance()
+    out["overload"] = {"rebalance": step, "levels": levels()}
+    if not (step["degraded"] > 0 and rt.degrade_level == 0
+            and be.degrade_level == be2.degrade_level == cap
+            and 0 < st.degrade_level < cap):
+        return out, (f"overload degraded {levels()} (realtime, standard, "
+                     f"best_effort x2), not best_effort to {cap} first")
+    if step["demand_units_per_s"] > fleet.budget_units_per_s:
+        return out, f"overload left demand over the budget: {step}"
+    # ---- frames on the degraded ladder, tier by tier
+    lone = {}
+    for fs, kind in sessions:
+        vd = VideoDetector(det, fs.base_config.degraded(fs.degrade_level),
+                           decode_cap=STREAM_DECODE_CAP)
+        lone[id(fs)] = [vd.process(f) for f in videos[kind]]
+    tiers_seen: list = []
+    real_flush = svc.flush
+
+    def flush_spy(tier=None):
+        with svc._lock:
+            carried = sorted({r.tier for r in svc._queue if r.tier == tier})
+        tiers_seen.append((tier, carried))
+        return real_flush(tier=tier)
+
+    svc.flush = flush_spy
+    flush_ms_runs, per_flush = [], []
+    reqs = {id(fs): [] for fs, _kind in sessions}
+
+    def frames():
+        for i in range(FLEET_FRAMES):
+            for fs, kind in sessions:
+                reqs[id(fs)].append(fs.submit_frame(videos[kind][i]))
+            before = ops.launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fleet.flush()
+            torch.cuda.synchronize()
+            flush_ms_runs.append((time.perf_counter() - t0) * 1e3)
+            after = ops.launches()
+            per_flush.append({k: after[k] - before[k] for k in after})
+
+    _n, err = on_path("fleet", frames, (head_s, head_a, tail_c),
+                      (split_b, inv_d))
+    svc.flush = real_flush
+    bad = []
+    for fs, _kind in sessions:
+        bad += request_errors(reqs[id(fs)], lone[id(fs)],
+                              f"fleet {fs.tier} session")
+        if [r.stats.frame_idx for r in reqs[id(fs)] if r.stats is not None] \
+                != list(range(FLEET_FRAMES)):
+            bad.append(f"fleet {fs.tier} session: frames out of order")
+        if any(r.dropped for r in reqs[id(fs)]):
+            bad.append(f"fleet {fs.tier} session: a frame was shed")
+    want = [(t, [t]) for t in SLO_TIERS] * FLEET_FRAMES
+    if tiers_seen != want:
+        bad.append(f"fleet flushes ran tiers {tiers_seen}, not {want}")
+    if err or bad:
+        return out, err or "; ".join(bad)
+    modes: dict = {}
+    for fs, _kind in sessions:
+        for r in reqs[id(fs)]:
+            key = f"{fs.tier}/{r.stats.mode}"
+            modes[key] = modes.get(key, 0) + 1
+    mean = {k: sum(c[k] for c in per_flush) / len(per_flush)
+            for k in (head_s, head_a, tail_c)}
+    out["frame_modes"] = modes
+    out["ms_per_fleet_flush"] = sum(flush_ms_runs) / len(flush_ms_runs)
+    out["ms_per_fleet_flush_runs"] = flush_ms_runs
+    out["launches_per_flush"] = per_flush
+    print(f"fleet: 4 sessions x {FLEET_FRAMES} frames at levels {levels()} "
+          f"== lone stretched VideoDetectors; modes {modes}; "
+          f"{out['ms_per_fleet_flush']:.2f} ms per fleet flush "
+          f"(runs {[round(x, 2) for x in flush_ms_runs]}); launches per "
+          f"flush S {mean[head_s]:.2f} A {mean[head_a]:.2f} C "
+          f"{mean[tail_c]:.2f} [{smi}]")
+    # ---- shedding only once the ladder is exhausted
+    frame = videos["static_cctv"][0]
+    for fs, _kind in sessions:
+        fs.note_work_frac(1.0)
+    rt.fps = 5.0 * fps            # realtime alone over the capacity
+    shed = [fleet.submit_frame(be, frame).dropped]
+    fleet.rebalance()
+    if levels()[1:] != [cap] * 3:
+        return out, f"the ladder is not exhausted after overload: {levels()}"
+    shed += [fleet.submit_frame(fs, frame).dropped for fs in (be, be2, st, rt)]
+    svc.flush()
+    out["shed"] = shed
+    if shed != [False, True, True, False, False]:
+        return out, (f"shed {shed}: best_effort with room, best_effort x2, "
+                     "standard, realtime at the cap")
+    # ---- recovery with hysteresis
+    rt.fps = fps
+    for fs, _kind in sessions:
+        fs.note_work_frac(1.0)
+    budget = fleet.budget_units_per_s
+    mid = 0.5 * (1.0 + fleet.config.restore_margin) * budget
+    scale = mid / fleet.demand_units_per_s()
+    for fs, _kind in sessions:
+        fs.fps *= scale
+    held = fleet.rebalance()
+    for fs, _kind in sessions:
+        fs.fps *= 0.05
+    restored = [fleet.rebalance() for _ in range(cap + 1)]
+    out["recovery"] = {"held": held, "restored": restored,
+                       "levels": levels()}
+    if held["degraded"] or held["restored"] or levels() != [0, 0, 0, 0]:
+        return out, (f"recovery: at {mid / budget:.2f} of the budget "
+                     f"{held}; then {restored}, levels {levels()}")
+    stats = svc.stats().fleet.as_dict()
+    out["stats"] = stats
+    if (stats["admitted"], stats["rejected"], stats["frames_dropped"]) != \
+            (4, 1, 2):
+        return out, f"fleet stats {stats}"
+    print(f"fleet: admitted {stats['admitted']}, rejected "
+          f"{stats['rejected']}; shed {shed} (best_effort with room, "
+          f"best_effort x2, standard, realtime at the cap); held at "
+          f"{mid / budget:.2f} of the budget, then restored "
+          f"{[r['restored'] for r in restored]} to levels {levels()}; "
+          f"degrade events {stats['degrade_events']}, restore events "
+          f"{stats['restore_events']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, ""
+
+
+def train_spied(adaboost, cfg, device):
+    """``adaboost.train_cascade(cfg, device)`` with every boosting round's
+    inputs and choice recorded: ``(cascade, info, rounds, stage_s)``.
+    ``rounds[k]`` is ``(vals_sorted, order, w, y, feat, theta, pol)`` as
+    tensors on ``device``; ``stage_s[s]`` is ``(boosting seconds,
+    seconds to the next stage's boosting)``: what follows a stage's
+    boosting is mining the next stage's negatives on the host."""
+    rounds, marks = [], []
+    best, boost = adaboost._best_stump, adaboost._boost_stage
+
+    def best_spy(vals_sorted, order, w, y):
+        out = best(vals_sorted, order, w, y)
+        rounds.append((vals_sorted, order, w, y, *out[1:4]))
+        return out
+
+    def boost_spy(*args, **kw):
+        t0 = time.perf_counter()
+        out = boost(*args, **kw)
+        marks.append((t0, time.perf_counter()))
+        return out
+
+    adaboost._best_stump, adaboost._boost_stage = best_spy, boost_spy
+    try:
+        casc, info = adaboost.train_cascade(cfg, device=device)
+    finally:
+        adaboost._best_stump, adaboost._boost_stage = best, boost
+    t_end = time.perf_counter()
+    stage_s = [(b - a, (marks[i + 1][0] if i + 1 < len(marks) else t_end) - b)
+               for i, (a, b) in enumerate(marks)]
+    return casc, info, rounds, stage_s
+
+
+def round_eps64(rnd, feat: int, theta, pol: int) -> float:
+    """Weighted error in float64 of stump ``(feat, theta, pol)`` on the
+    weights and feature values of boosting round ``rnd``."""
+    import numpy as np
+    vals_sorted, order, w, y = (t.cpu().numpy() for t in rnd[:4])
+    col = np.empty(len(y), np.float32)
+    col[order[:, feat]] = vals_sorted[:, feat]
+    pred = (col < theta) if pol == 1 else (col > theta)
+    return float(w.astype(np.float64)[pred != (y == 1)].sum())
+
+
+def check_training(torch, on_path, smi: str):
+    """Phase 9.  Returns ``(report, error)``; ``error`` is '' when every
+    check held.
+
+    ``train_cascade`` at ``scripts/train_pretrained.py``'s widths
+    (``TRAIN_CONFIG``; ``n_stages`` cut from 14 to 3 for time) on the card
+    and on the CPU, same seed.  The port pins every sum's order, so the
+    two runs are expected to choose the same stumps with the same bits: the
+    same features, polarities and weak classifiers per stage, thresholds,
+    votes and stage thresholds within ``TRAIN_RTOL``.  A round where the
+    runs choose differently must be an exact-arithmetic tie (both choices
+    within 1e-6 in float64 error on the round's weights) and ends the
+    comparison there.  Then the card's cascade through
+    ``Detector.detect_batch`` on the card (S, A, C: ``dense_segments``
+    ``(1,)`` puts stages 1-2 in the packed tail) and on the CPU over
+    ``TRAIN_SCENES`` seeded 480x640 face scenes: equal rects."""
+    import numpy as np
+    from repro_torch.core import Detector
+    from repro_torch.core.training import adaboost
+    from repro_torch.core.training.data import render_scene, window_dataset
+    t_phase = time.perf_counter()
+    cfg = adaboost.TrainConfig(**TRAIN_CONFIG)
+    out: dict = {"card": smi, "config": cfg._asdict(),
+                 "cut": {"n_stages": [14, cfg.n_stages]}}
+    print(f"training at scripts/train_pretrained.py's widths, n_stages cut "
+          f"14 -> {cfg.n_stages} for time")
+    runs = {}
+    for name, dev in (("card", DEVICE), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        runs[name] = train_spied(adaboost, cfg, dev)
+        out[f"{name}_seconds"] = time.perf_counter() - t0
+    (c_casc, c_info, c_rounds, c_stage), (p_casc, p_info, p_rounds,
+                                          p_stage) = runs["card"], runs["cpu"]
+    out["stage_seconds"] = {"card": c_stage, "cpu": p_stage}
+    out["info"] = {"card": c_info, "cpu": p_info}
+    print(f"training seconds per stage (boosting, then mining the next "
+          f"stage's negatives): card {[(round(a, 2), round(b, 2)) for a, b in c_stage]}, "
+          f"CPU {[(round(a, 2), round(b, 2)) for a, b in p_stage]}; whole "
+          f"run card {out['card_seconds']:.1f} s, CPU {out['cpu_seconds']:.1f}"
+          f" s [{smi}]")
+    # the first round where the runs choose differently, if any
+    picks = [[(int(r[4]), float(r[5]), int(r[6])) for r in rounds]
+             for rounds in (c_rounds, p_rounds)]
+    first = next((k for k, (a, b) in enumerate(zip(*picks)) if a != b),
+                 min(map(len, picks)))
+    out["rounds"] = {"card": len(picks[0]), "cpu": len(picks[1]),
+                     "first_divergence": first
+                     if first < max(map(len, picks)) else None}
+    if first < max(map(len, picks)):
+        if first == min(map(len, picks)):
+            return out, (f"training: the runs stop after {len(picks[0])} and "
+                         f"{len(picks[1])} rounds with equal choices")
+        rnd = p_rounds[first]
+        gap = abs(round_eps64(rnd, *picks[0][first])
+                  - round_eps64(rnd, *picks[1][first]))
+        out["divergence_eps64_gap"] = gap
+        print(f"training: card and CPU choose differently at round {first}"
+              f" ({picks[0][first]} vs {picks[1][first]}); float64 error "
+              f"gap {gap:.3g} on the CPU run's weights")
+        if gap > 1e-6:
+            return out, (f"training: card and CPU diverge at round {first} "
+                         f"by a float64 error gap of {gap:.3g}: not a tie")
+    c_arr, p_arr = c_casc.numpy(), p_casc.numpy()
+    n_cmp = first        # weak classifiers chosen alike
+    bounds = c_arr["stage_offsets"]
+    done = [s for s in range(len(bounds) - 1) if bounds[s + 1] <= n_cmp]
+    bad = []
+    if first == len(picks[0]) == len(picks[1]):
+        for f in ("stage_offsets", "rect_xywh", "rect_w"):
+            if not np.array_equal(c_arr[f], p_arr[f]):
+                bad.append(f"{f} differ")
+    rel = {}
+    for f in ("wc_threshold", "left_val", "right_val"):
+        a, b = c_arr[f][:n_cmp], p_arr[f][:n_cmp]
+        rel[f] = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max()
+                       ) if n_cmp else 0.0
+        if not np.allclose(a, b, rtol=TRAIN_RTOL, atol=0):
+            bad.append(f"{f} past rtol {TRAIN_RTOL}")
+    a, b = c_arr["stage_threshold"][done], p_arr["stage_threshold"][done]
+    if not np.allclose(a, b, rtol=TRAIN_RTOL, atol=0):
+        bad.append(f"stage_threshold past rtol {TRAIN_RTOL}")
+    bit_equal = all(np.array_equal(c_arr[f], p_arr[f]) for f in c_arr)
+    out.update(max_rel=rel, bit_equal=bit_equal,
+               stage_sizes=[int(x) for x in np.diff(bounds)])
+    if bad:
+        return out, "training card vs CPU: " + "; ".join(bad)
+    print(f"training card == CPU: stages {out['stage_sizes']} weak "
+          f"classifiers, same features and polarities, max rel "
+          f"{ {k: f'{v:.3g}' for k, v in rel.items()} } (rtol {TRAIN_RTOL}),"
+          f" bit for bit {bit_equal}; DR {c_info['overall_dr']:.4f} FPR "
+          f"{c_info['overall_fpr']:.5f}")
+    # ---- device time of the two inner functions at stage 0's widths
+    rng = np.random.default_rng(cfg.seed)
+    corpus = window_dataset(rng, cfg.n_pos, cfg.n_neg)
+    rx, rw = adaboost.feature_pool(cfg)
+    dev = torch.device(DEVICE)
+    win = torch.as_tensor(corpus.windows, device=dev)
+    rx_t, rw_t = torch.as_tensor(rx, device=dev), torch.as_tensor(rw,
+                                                                  device=dev)
+    fv_ms = profiled_ms(torch, lambda: adaboost._feature_values(win, rx_t,
+                                                                rw_t), 5)
+    vals_sorted, order = torch.sort(adaboost._feature_values(win, rx_t, rw_t),
+                                    dim=0, stable=True)
+    y = torch.as_tensor(corpus.labels, device=dev)
+    w = torch.full((len(corpus.labels),), 1.0 / len(corpus.labels),
+                   device=dev)
+    round_ms = profiled_ms(torch, lambda: adaboost._best_stump(
+        vals_sorted, order, w, y), 5)
+    out["feature_values_ms"], out["boosting_round_ms"] = fv_ms, round_ms
+    print(f"training device time: feature_values {fv_ms:.3f} ms per call "
+          f"({len(corpus.labels)} windows x {len(rx)} features), one "
+          f"boosting round {round_ms:.3f} ms [{smi}]")
+    # ---- the trained cascade detects on the card as on the CPU
+    head_s, head_a, split_b, tail_c, inv_d = (
+        "integral_image", "fused_head", "haar_stage", "packed_window",
+        "window_variance")
+    dcfg = main_path_config()._replace(dense_segments=(1,))
+    det = Detector(c_casc, dcfg, device=DEVICE)
+    n_tail = len(det.batch_plan(*det._bucket_hw(H, W)).tail_segments)
+    dcfg = dcfg._replace(capacity_fracs=(1.0,) * n_tail)
+    imgs = scenes(render_scene, TRAIN_SCENES, H, W, SEED + 2, n_faces=3)
+    on_card, err = on_path(
+        "trained", lambda: Detector(c_casc, dcfg, device=DEVICE)
+        .detect_batch(imgs), (head_s, head_a, tail_c), (split_b, inv_d))
+    if err:
+        return out, err
+    on_cpu = Detector(c_casc.to("cpu"), dcfg, device="cpu").detect_batch(imgs)
+    out["rects_per_scene"] = [len(r) for r in on_card]
+    for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+        if not np.array_equal(a, b):
+            return out, f"trained cascade: card and CPU rects differ on {i}"
+    if not sum(out["rects_per_scene"]) or not all(
+            np.isfinite(r).all() and r.shape[1] == 4 for r in on_card):
+        return out, f"trained cascade: rects {out['rects_per_scene']}"
+    print(f"trained cascade on {TRAIN_SCENES} scenes at {H}x{W}: card == CPU"
+          f", {out['rects_per_scene']} grouped rects")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, ""
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -1038,7 +1502,8 @@ def main() -> int:
     lib_in = torch.stack([stack, (stack - 128) ** 2, stack - 128])
     n_px = BATCH * H * W
     n_tab = BATCH * (H + 1) * (W + 1)
-    s_ms = profiled_ms(torch, lambda: integral_image.sat_tables(stack), 20)
+    s_ms = profiled_ms(torch, lambda: integral_image.sat_tables(stack), 20,
+                       "sat_chained")
     cumsum_ms = profiled_ms(torch, lambda: torch.cumsum(torch.cumsum(
         lib_in, -2), -1), 20)
     print(f"kernel S == CPU on integer and non-integer input; S {s_ms:.4f} "
@@ -1073,7 +1538,8 @@ def main() -> int:
                     float((sums_t - sums_p).abs().max()))
         a_ms[label] = profiled_ms(
             torch, lambda tile=tile: fused_head.tile_pass(
-                cascade, 0, n_dense, ii, ii2, iic, tile=tile), 10)
+                cascade, 0, n_dense, ii, ii2, iic, tile=tile), 10,
+            "fused_tiles")
         if tile == DEFAULT_TILE:
             inv_a, sums_a = inv_t, sums_t
     n_win = inv_p.numel()
@@ -1115,7 +1581,7 @@ def main() -> int:
         "src/repro/kernels/window_variance.py:44",
         float((inv_d - inv_dp).abs().max()),
         profiled_ms(torch, lambda: window_variance.inv_sigma_grid(
-            ii2, iic, ny, nx), 20),
+            ii2, iic, ny, nx), 20, "inv_sigma"),
         cuda_ms(torch, lambda: window_variance.inv_sigma_grid_plain(
             ii2, iic, ny, nx), 3),
         (2 * 4 * n_tab + 4 * n_win, 13 * n_win))
@@ -1150,7 +1616,7 @@ def main() -> int:
             errors.append(f"kernel B {label} launched in {b_blocks[label]}")
         b_ms[label] = profiled_ms(
             torch, lambda tile=tile: haar_stage.stage_sums(
-                cascade, s_b, ii, inv_b, tile=tile), 10)
+                cascade, s_b, ii, inv_b, tile=tile), 10, "stage_sums")
     k_b = kb[s_b + 1] - kb[s_b]
     print(f"kernel B stage {s_b} per head tile (ms, block): "
           f"{ {k: (round(v, 4), b_blocks[k]) for k, v in b_ms.items()} }; "
@@ -1228,9 +1694,10 @@ def main() -> int:
         return (4 * ii_flat.numel() + 4 * 6 * lanes_read + param_bytes * k_c
                 + 4 * cap * n_run, lanes_read * 20 * k_c)
 
-    c_all = profiled_ms(torch, lambda: packed_window.stage_sums(*c_args), 5)
+    c_all = profiled_ms(torch, lambda: packed_window.stage_sums(*c_args), 5,
+                        "packed_sums")
     c_live = profiled_ms(torch, lambda: packed_window.stage_sums(
-        *c_args, n_live=n_live), 10)
+        *c_args, n_live=n_live), 10, "packed_sums")
     b_all, _ = bound_ms(*c_work(cap))
     b_live, _ = bound_ms(*c_work(live))
     print(f"kernel C all {cap} lanes: {c_all:.4f} ms (bound {b_all:.4f}); "
@@ -1484,6 +1951,21 @@ def main() -> int:
     print(f"service phase: {service['seconds']:.1f} s")
     report["service"] = service
 
+    # ---------------------------------------------------------- 8. fleet
+    fleet, err = check_fleet(torch, on_path, det_one,
+                             flush["fused"]["ms_per_flush"], smi)
+    if err:
+        return fail(err)
+    print(f"fleet phase: {fleet['seconds']:.1f} s")
+    report["fleet"] = fleet
+
+    # ------------------------------------------------------- 9. training
+    training, err = check_training(torch, on_path, smi)
+    if err:
+        return fail(err)
+    print(f"training phase: {training['seconds']:.1f} s")
+    report["training"] = training
+
     # each kernel's launches are those of the first path that runs it: S, A
     # and C on the fused flush, B on the split flush, D on the kernel API
     launch_path = {split_b: "split", inv_d_k: "kernel_api"}
@@ -1499,6 +1981,8 @@ def main() -> int:
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"stream": stream}))
     print(json.dumps({"service": service}))
+    print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

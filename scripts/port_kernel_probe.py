@@ -154,9 +154,9 @@ def main() -> int:
         equal = torch.equal(packed_window.stage_sums(
             *args, n_live=n_live, lane_block=block), want)
         live = cs.profiled_ms(torch, lambda: packed_window.stage_sums(
-            *args, n_live=n_live, lane_block=block), 10)
+            *args, n_live=n_live, lane_block=block), 10, "packed_sums")
         full = cs.profiled_ms(torch, lambda: packed_window.stage_sums(
-            *args, lane_block=block), 3)
+            *args, lane_block=block), 3, "packed_sums")
         out["packed"].append({"lane_block": block, "equal": equal,
                               "live_ms": live, "all_ms": full})
         print(f"C {block}: live {live:.4f} ms, all {full:.4f} ms "

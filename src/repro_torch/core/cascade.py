@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 __all__ = ["WINDOW", "MAX_RECTS", "FIELDS", "Cascade", "make_cascade",
-           "from_numpy", "load_cascade", "paper_shaped_cascade",
-           "PAPER_STAGE_SIZES"]
+           "from_numpy", "save_cascade", "load_cascade",
+           "paper_shaped_cascade", "PAPER_STAGE_SIZES"]
 
 WINDOW = 24  # minimum detection window (paper: 24x24 px)
 MAX_RECTS = 3
@@ -96,6 +96,14 @@ def from_numpy(arrays: dict, device="cpu") -> Cascade:
     c = Cascade(bounds=bounds, **tensors)
     c.validate()
     return c
+
+
+def save_cascade(path: str, cascade: Cascade, meta: dict | None = None
+                 ) -> None:
+    """Write ``cascade`` in the reference's npz layout: the seven fields
+    as numpy arrays and ``__meta__``, ``meta`` as JSON, which
+    ``repro.core.cascade.load_cascade`` and :func:`load_cascade` read."""
+    np.savez(path, __meta__=json.dumps(meta or {}), **cascade.numpy())
 
 
 def load_cascade(path: str, device="cpu") -> tuple[Cascade, dict]:

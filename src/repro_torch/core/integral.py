@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["CENTRE", "integral_image", "integral_images", "rect_sum",
-           "div_rn", "inv_sigma_of", "window_inv_sigma"]
+           "div_rn", "inv_sigma_of", "window_inv_sigma", "integral_value"]
 
 CENTRE = 128.0
 
@@ -88,3 +88,10 @@ def window_inv_sigma(ii_pair, ys, xs, window: int) -> torch.Tensor:
     mean = div_rn(s1, n)
     return inv_sigma_of(div_rn(s2, n) - mean * mean)
 
+
+def integral_value(img: torch.Tensor) -> torch.Tensor:
+    """The paper's 'integral value' (the RIT relation, Eq. 6): the sum of
+    every pixel of the image, the SAT's bottom-right entry, as a 0-dim
+    float32 tensor.  Accumulated in float64 and rounded once, so every
+    device gives the same bits (exact for integer-valued images)."""
+    return img.to(torch.float64).sum().to(torch.float32)

@@ -16,7 +16,7 @@ import torch
 from .cascade import WINDOW
 
 __all__ = ["PyramidLevel", "pyramid_plan", "downscale_indices",
-           "downscale_nearest"]
+           "downscale_nearest", "build_pyramid"]
 
 
 class PyramidLevel(NamedTuple):
@@ -54,3 +54,11 @@ def downscale_nearest(img: torch.Tensor, out_h: int, out_w: int
     xs = torch.as_tensor(downscale_indices(w, out_w), device=img.device)
     return img[..., ys[:, None], xs[None, :]]
 
+
+def build_pyramid(img: torch.Tensor, scale_factor: float = 1.2,
+                  min_size: int = WINDOW
+                  ) -> list[tuple[torch.Tensor, PyramidLevel]]:
+    """Every level of ``img``'s pyramid with its plan entry:
+    ``[(downscaled image, PyramidLevel), ...]``."""
+    plan = pyramid_plan(img.shape[-2], img.shape[-1], scale_factor, min_size)
+    return [(downscale_nearest(img, lv.height, lv.width), lv) for lv in plan]

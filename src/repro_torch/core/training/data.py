@@ -1,20 +1,25 @@
-"""Procedural face scenes, copied from ``repro.core.training.data``.
+"""Procedural face / non-face corpus, copied from
+``repro.core.training.data``.
 
-Only what renders test and smoke-run scenes is here: ``render_scene`` and
-its helpers (a parametric face, an elliptical head with darker eye and
-mouth bands and a nose ridge, over a textured background).  The same
-``numpy.random.Generator`` state gives the reference's pixels exactly.
-Everything is numpy on the host: data generation is not a device workload.
-AdaBoost training and its window corpora come with the training slice.
+A parametric face (an elliptical head with darker eye and mouth bands and
+a nose ridge) over textured backgrounds: scenes for detection
+(``render_scene``) and 24x24 training windows for AdaBoost
+(``window_dataset``: faces, background crops and near-face decoys).  The
+same ``numpy.random.Generator`` state gives the reference's pixels
+exactly and leaves the generator in the same state.  Everything is numpy
+on the host: data generation is not a device workload.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 
 from ..cascade import WINDOW
 
-__all__ = ["make_face", "make_background", "render_scene"]
+__all__ = ["make_face", "make_background", "make_decoy", "render_scene",
+           "FaceCorpus", "sample_negative", "window_dataset"]
 
 
 def _ellipse_mask(h: int, w: int, cy: float, cx: float, ry: float, rx: float
@@ -83,6 +88,37 @@ def make_face(rng: np.random.Generator, size: int = WINDOW,
     return np.clip(img, 0, 255).astype(np.float32)
 
 
+def make_decoy(rng: np.random.Generator, size: int = WINDOW) -> np.ndarray:
+    """A *near*-face distractor: face-like statistics with wrong geometry
+    (single eye / eyes below mouth / vertical eye pair).  Keeps stage-1+
+    training honest, mirroring hard negatives in real corpora."""
+    s = size / 24.0
+    brightness = rng.uniform(100, 210)
+    img = make_background(rng, size, size, tone=brightness * rng.uniform(0.4, 0.8))
+    head = _ellipse_mask(size, size, 12.5 * s, 12 * s,
+                         rng.uniform(9.5, 11.8) * s, rng.uniform(7, 9.8) * s)
+    img[head] = brightness + rng.normal(0, 7, (size, size))[head]
+    dark = brightness * rng.uniform(0.25, 0.55)
+    kind = rng.integers(0, 3)
+    if kind == 0:      # single central eye
+        e = _ellipse_mask(size, size, 9 * s, 12 * s, 1.6 * s, 1.6 * s)
+        img[e] = dark
+    elif kind == 1:    # eyes below "mouth" (inverted)
+        for side in (-1, 1):
+            e = _ellipse_mask(size, size, 16 * s, (12 + side * 4.2) * s,
+                              1.3 * s, 1.6 * s)
+            img[e] = dark
+        m = _ellipse_mask(size, size, 7 * s, 12 * s, 1.1 * s, 3.8 * s)
+        img[m] = dark
+    else:              # vertically-stacked eye pair
+        for dy in (-1, 1):
+            e = _ellipse_mask(size, size, (12 + dy * 3.4) * s, 9 * s,
+                              1.4 * s, 1.6 * s)
+            img[e] = dark
+    img += rng.normal(0, 4, (size, size))
+    return np.clip(img, 0, 255).astype(np.float32)
+
+
 def make_background(rng: np.random.Generator, h: int, w: int,
                     tone: float | None = None) -> np.ndarray:
     """Textured non-face background: mixture of gradients, blobs, stripes."""
@@ -139,3 +175,31 @@ def render_scene(rng: np.random.Generator, h: int = 240, w: int = 320,
         img[y0:y0 + fs, x0:x0 + fs] = make_face(rng, fs)
         boxes.append((x0, y0, fs, fs))
     return img, np.asarray(boxes, np.int32).reshape(-1, 4)
+
+
+class FaceCorpus(NamedTuple):
+    """24x24 training windows + labels."""
+    windows: np.ndarray   # (N, 24, 24) float32
+    labels: np.ndarray    # (N,) int32 — 1 face / 0 non-face
+
+
+def sample_negative(rng: np.random.Generator, decoy_frac: float = 0.35
+                    ) -> np.ndarray:
+    """One negative window: textured background crop or near-face decoy."""
+    if rng.random() < decoy_frac:
+        return make_decoy(rng)
+    bg = make_background(rng, WINDOW * 2, WINDOW * 2)
+    y0 = rng.integers(0, bg.shape[0] - WINDOW + 1)
+    x0 = rng.integers(0, bg.shape[1] - WINDOW + 1)
+    return bg[y0:y0 + WINDOW, x0:x0 + WINDOW].copy()
+
+
+def window_dataset(rng: np.random.Generator, n_pos: int, n_neg: int,
+                   decoy_frac: float = 0.35) -> FaceCorpus:
+    """``n_pos`` faces then ``n_neg`` negatives, labelled 1 / 0."""
+    pos = np.stack([make_face(rng) for _ in range(n_pos)])
+    neg = np.stack([sample_negative(rng, decoy_frac) for _ in range(n_neg)])
+    windows = np.concatenate([pos, neg]).astype(np.float32)
+    labels = np.concatenate([np.ones(n_pos, np.int32),
+                             np.zeros(n_neg, np.int32)])
+    return FaceCorpus(windows, labels)

@@ -47,8 +47,8 @@ whose SLO comes from ``ServiceConfig.tier_slos`` (falling back to the
 global ``slo_ms``).  A flush plans against the *binding* (minimum) SLO of
 the tiers it carries (:func:`repro_torch.scheduling.dvfs.binding_slo`), and
 the energy ledger tracks attainment per tier.  ``flush(tier=...)`` flushes
-one tier only — the reference's fleet scheduler uses that to run realtime
-rounds before best-effort ones.
+one tier only — the fleet scheduler (:mod:`repro_torch.serve.fleet`) uses
+that to run realtime rounds before best-effort ones.
 
 Stream sessions (video workload)
 --------------------------------

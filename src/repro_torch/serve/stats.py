@@ -144,8 +144,8 @@ class EnergyStats:
 
 @dataclass(frozen=True)
 class FleetStats:
-    """Multi-tenant fleet state (``stats().fleet``; None without a fleet
-    scheduler attached, which the port does not have yet)."""
+    """Multi-tenant fleet state (``stats().fleet``; None without a
+    :class:`repro_torch.serve.FleetScheduler` attached)."""
     sessions: int                            # live admitted sessions
     admitted: int                            # admission accepts, lifetime
     rejected: int                            # admission rejects, lifetime

@@ -6,9 +6,11 @@ card equal to the port's CPU run, through every kernel, and a small
 run's; kernel C's dense-order stage prefix, a small stream on the
 card equal to the port's CPU run, a governed two-pod service flush on
 the card equal to the CPU's rects, shares and modelled joules under the
-same seeded rates, and a device-state session flushed by the service's
-background thread.  Imports only torch, numpy and the port, so it runs
-where jax is not installed:
+same seeded rates, a device-state session flushed by the service's
+background thread, a fleet's degraded sessions equal to lone CPU
+``VideoDetector``s on their stretched configs, and a tiny cascade trained
+on the card equal bit for bit to the CPU's.  Imports only torch, numpy
+and the port, so it runs where jax is not installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -419,3 +421,73 @@ def test_device_state_session_flushed_by_background_thread(card):
     for r, im in zip(ones, imgs):
         assert r.error is None
         assert np.array_equal(r.result(), on_cpu.detect(im))
+
+
+@pytest.mark.cuda
+def test_fleet_degraded_sessions_on_card_equal_lone_cpu_detectors(card):
+    """A fleet on a card service degrades best_effort to the ladder's cap
+    and standard after it, never realtime; each session's frames, flushed
+    tier by tier, equal a lone CPU ``VideoDetector`` on its stretched
+    config (rects, ``FrameStats``); the flushes launch S, A and C only."""
+    from repro_torch.serve import (DetectorService, FleetScheduler,
+                                   ServiceConfig)
+    from repro_torch.stream import StreamConfig, VideoDetector, make_video
+    casc = paper_shaped_cascade(0, stage_sizes=SMALL)
+    scfg = StreamConfig(tile=12, keyframe_interval=2, halo=0,
+                        full_refresh_frac=0.9)
+    on_cpu = Detector(casc, SERVICE_CFG, device="cpu")
+    svc = DetectorService(Detector(casc, SERVICE_CFG),
+                          ServiceConfig(stream_config=scfg))
+    units = svc._work_units((96, 96))
+    svc.seed_rates([4.0 * units])
+    fleet = FleetScheduler(svc)
+    sessions = [fleet.admit((96, 96), 1.0, tier=t, stream_config=c)
+                for t, c in (("realtime", scfg),
+                             ("standard", scfg._replace(device_state=True)),
+                             ("best_effort", scfg))]
+    for fs in sessions:
+        fs.note_work_frac(1.0)
+        fs.fps = 1.6
+    fleet.rebalance()
+    rt, st, be = sessions
+    assert (rt.degrade_level, be.degrade_level) == (0, scfg.max_degrade_level)
+    frames = [f for f, _ in make_video("static_cctv", n_frames=6, h=96, w=96,
+                                       seed=4)]
+    lone = [VideoDetector(on_cpu, fs.base_config.degraded(fs.degrade_level))
+            for fs in sessions]
+    ops.reset_launches()
+    for f in frames:
+        reqs = [fs.submit_frame(f) for fs in sessions]
+        fleet.flush()
+        for r, vd in zip(reqs, lone):
+            rects, stats = vd.process(f)
+            assert r.error is None and not r.dropped
+            assert np.array_equal(r.result(), rects) and r.stats == stats
+    counts = ops.launches()
+    for k in ("integral_image", "fused_head", "packed_window"):
+        assert counts[k] > 0, k
+    assert counts["haar_stage"] == counts["window_variance"] == 0
+
+
+@pytest.mark.cuda
+def test_training_on_card_equals_cpu_bit_for_bit(card):
+    """``train_cascade`` on the card and on the CPU (the tiny config of
+    ``tests/test_adaboost.py``, three stages): the same cascade arrays bit
+    for bit and the same per-stage history; ``feature_values`` equal too."""
+    from repro_torch.core.training import TrainConfig, train_cascade
+    from repro_torch.core.training.adaboost import (feature_pool,
+                                                    feature_values)
+    from repro_torch.core.training.data import window_dataset
+    cfg = TrainConfig(n_stages=3, n_pos=120, n_neg=120, max_features=300,
+                      max_weak_per_stage=8, stage_fpr=0.5, stage_dr=0.98,
+                      seed=5)
+    rx, rw = feature_pool(cfg)
+    win = window_dataset(np.random.default_rng(3), 50, 50).windows
+    assert np.array_equal(feature_values(win, rx, rw),
+                          feature_values(win, rx, rw, device="cpu"))
+    (c_casc, c_info), (p_casc, p_info) = (train_cascade(cfg),
+                                          train_cascade(cfg, device="cpu"))
+    assert c_casc.rect_xywh.is_cuda
+    for f, a in c_casc.numpy().items():
+        assert np.array_equal(a, p_casc.numpy()[f]), f
+    assert c_info["stages"] == p_info["stages"]
