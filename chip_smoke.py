@@ -101,7 +101,18 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
    the card and on the CPU, the same stumps; seconds per stage, the
    profiler's device ms of one ``feature_values`` call and of one
    boosting round; then the trained cascade through ``detect_batch`` on
-   the card (S, A, C) and on the CPU, equal rects (``check_training``).
+   the card (S, A, C) and on the CPU, equal rects (``check_training``);
+10. LM serving: ``repro_torch.serve.generate`` at ``olmo-1b``'s full width
+   in bf16 (weights from a seed): 8 prompts of 512 tokens, 32 new tokens,
+   greedy; ms per prefill and per decode step, tokens per second, peak
+   device memory; cascade early-exit decode steps (thresholds above 1
+   give the plain decode's tokens at full depth, threshold 0 after group
+   3 gives depth 4, one middle setting its mean depth and modelled
+   saving); a float32 copy on the card and on the CPU, equal greedy tokens
+   and logits within 2e-3; the blockwise flash forward against its oracle
+   at (1, 4096, 16, 128) bf16, timed beside
+   ``scaled_dot_product_attention`` (``check_lm``).  The LM stack has no
+   hand kernel: this phase launches none of S, A, B, C, D.
 
 Every path driven on the card runs with the launch counts set to 0 just
 before it and read just after: each must have launched the kernels of its
@@ -114,14 +125,16 @@ flush: S, A on keyframes and one-shots, C; service_background, the
 background flusher's run: S, A, C; fleet, the fleet's frames: S, A on
 keyframes, C; trained, the trained cascade's flush: S, A, C) and none it
 must not (no engine, service or fleet path launches D; no stream,
-service or fleet path B; an incremental frame no dense kernel).
+service or fleet path B; an incremental frame no dense kernel; lm, the
+whole LM phase, none of the five).
 
 Device times come from ``profiled_ms``, which divides a trace's device
 time by the launches the trace holds, not by the calls requested.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"stream": {...}}``, ``{"service": {...}}``, ``{"fleet":
-{...}}`` and ``{"training": {...}}`` line each, and last ``{"ok": true,
+{...}}``, ``{"training": {...}}`` and ``{"lm": {...}}`` line each, and
+last ``{"ok": true,
 "device": {...}}``; it exits non-zero, with no result line, when there is
 no CUDA device or no checkout around it.
 
@@ -179,6 +192,23 @@ TRAIN_CONFIG = dict(n_stages=3, n_pos=1200, n_neg=1200, max_features=3500,
                     seed=7)
 TRAIN_RTOL = 1e-6
 TRAIN_SCENES = 3
+# phase 10: LM serving at olmo-1b's full width (bf16): prompts, their
+# length, new tokens per prompt, cascade steps; the float32 card-vs-CPU
+# check (batch, prompt length, decode steps, the reference's decode
+# tolerance, tests/test_models.py); the attention yardstick's (B, S, H, D)
+LM_ARCH = "olmo-1b"
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 32
+LM_CASCADE_STEPS = 8
+# the float32 card-vs-CPU copy: a prompt past olmo-1b's attn_chunk_kv
+# (1024) and attn_chunk_q (512), so the prefill's flash runs 3 q blocks
+# over 2 kv blocks and each decode step reads a cache of 1100+ entries
+LM_CHECK = dict(batch=1, prompt=1100, steps=4, atol=2e-3)
+LM_ATTN_SHAPE = (1, 4096, 16, 128)
+# the flash may differ from the float32 oracle by its rounding of the
+# probabilities to bf16: at most this many of that rounding's standard
+# deviations per entry (the CPU's largest at (1, 4096, 2, 128) was 3.1)
+LM_ATTN_SIGMAS = 6.0
+BF16_OPS = 989e12    # H100 SXM dense bf16 tensor-core rate (data sheet)
 
 
 def fail(msg: str) -> int:
@@ -238,6 +268,20 @@ def past_order_bound(torch, got, want, ii2, iic) -> int:
     inv = torch.maximum(got, want).double()
     bound = 0.5 * inv ** 3 * d_var + 4 * ulp(inv)
     return int(((got - want).abs().double() > bound).sum())
+
+
+def rounding_sigma(torch, q, k, v):
+    """Per output entry of causal attention (q, k, v: (B, S, H, D)), the
+    standard deviation of what rounding each probability p_j to bf16
+    (relative error at most 2^-8, zero mean, independent) adds to
+    sum_j p_j v_j: 2^-8 / sqrt(3) * sqrt(sum_j p_j^2 v_j^2), float32."""
+    S, D = q.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill_(~causal, float("-inf")), -1)
+    vf = v.float()
+    return (torch.einsum("bhqk,bkhd->bqhd", p.square_(), vf * vf).sqrt_()
+            * 2 ** -8 / 3 ** 0.5)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -393,6 +437,22 @@ def stream_workload(device, n_frames: int = STREAM_FRAMES):
                                                 h=H, w=W, seed=SEED)]
               for kind in SCENARIOS}
     return det, StreamConfig(**STREAM_CONFIG), videos
+
+
+def lm_workload(torch, device):
+    """Phase 10's LM serving workload: ``LM_ARCH`` at full width, its
+    weights drawn on ``device`` from seed ``SEED`` (the repo ships no LM
+    weights) and ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens from a numpy
+    generator seeded ``SEED``.  Returns ``(model, params, prompts)``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(LM_ARCH)
+    model = Model(cfg, device)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(device)
+    return model, params, prompts
 
 
 def pipelined(vd, frames) -> list:
@@ -1414,6 +1474,275 @@ def check_training(torch, on_path, smi: str):
     return out, ""
 
 
+def check_lm(torch, on_path, smi: str):
+    """Phase 10.  Returns ``(report, error)``; ``error`` is '' when every
+    check held.
+
+    LM serving through ``repro_torch.serve`` at ``LM_ARCH``'s full width
+    (``get_config``: bf16, 16 layers, d_model 2048, vocab 50304), weights
+    drawn on the card from seed ``SEED`` (the repo ships no LM weights):
+
+    - ``generate`` of ``LM_BATCH`` seeded prompts of ``LM_PROMPT`` tokens,
+      ``LM_NEW`` new tokens, greedy, twice (the second timed): the same
+      tokens both times, in the vocabulary; ms per prefill and per decode
+      step (CUDA events around ``Model.prefill`` / ``decode_step`` inside
+      ``generate``; the median over the steps after the first), decoded
+      tokens per second and the peak of allocated device memory (beside
+      what earlier phases still hold);
+    - cascade early exit from the prompts' prefilled cache: exits after
+      groups 3, 7, 11 with thresholds above 1 give the plain decode's
+      tokens over ``LM_CASCADE_STEPS`` steps, every depth 16; one exit
+      after group 3 at threshold 0 gives depth 4 everywhere; thresholds
+      (0.6, 0.5, 0.4) (``examples/early_exit_serving.py``'s) give the mean
+      depth and ``CascadeBatcher``'s modelled layer-group saving; ms per
+      cascade step beside the plain step;
+    - card vs CPU: a float32 copy of the config, the same weights on both,
+      batch 1, a ``LM_CHECK['prompt']``-token prompt (past both flash
+      chunks) and ``LM_CHECK['steps']`` greedy decode steps, TF32 off:
+      logits within ``LM_CHECK['atol']`` and equal tokens;
+    - attention: the port's blockwise ``flash_attention`` on
+      ``LM_ATTN_SHAPE`` bf16, causal, the config's chunks (512 / 1024: 8 q
+      blocks over 4 kv blocks), against ``attention_reference`` (float32
+      throughout, one rounding) element by element: within half an ulp of
+      each side's bf16 output plus ``LM_ATTN_SIGMAS`` standard deviations
+      of what rounding the probabilities to bf16 before P·V adds
+      (``rounding_sigma``); timed beside ``scaled_dot_product_attention``
+      on the same inputs (printed only; never on the path) and its bound
+      at the bf16 tensor rate.
+
+    No hand kernel runs on this path: the launch counts of S, A, B, C and
+    D stay 0."""
+    import statistics
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.early_exit import (CascadeBatcher, ExitConfig,
+                                               expected_depth)
+    from repro_torch.models.layers import attention_reference, flash_attention
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.serve import (generate, make_cascade_decode_step,
+                                   make_decode_step)
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    cfg = get_config(LM_ARCH)
+    out: dict = {"card": smi, "arch": LM_ARCH, "dtype": cfg.param_dtype,
+                 "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW}
+
+    def serve():
+        # device memory that earlier phases still hold
+        out["memory_allocated_before"] = torch.cuda.memory_allocated()
+        model, params, prompts = lm_workload(torch, dev)
+        out["params"] = sum(t.numel() for t in tree_leaves(params))
+        marks: dict = {"prefill": [], "decode": []}
+
+        def timed(name, fn):
+            def run(*a, **k):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                res = fn(*a, **k)
+                ev[1].record()
+                marks[name].append(ev)
+                return res
+            return run
+
+        model.prefill = timed("prefill", model.prefill)
+        model.decode_step = timed("decode", model.decode_step)
+        first = generate(model, params, prompts, max_new=LM_NEW)
+        for v in marks.values():
+            v.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        toks = generate(model, params, prompts, max_new=LM_NEW)
+        torch.cuda.synchronize()
+        out["generate_s"] = time.perf_counter() - t0
+        del model.prefill, model.decode_step
+        ms = {n: [a.elapsed_time(b) for a, b in v] for n, v in marks.items()}
+        out["ms_per_prefill"] = ms["prefill"][0]
+        out["ms_per_decode_step"] = statistics.median(ms["decode"][1:])
+        out["decode_tokens_per_s"] = (LM_BATCH * 1e3
+                                      / out["ms_per_decode_step"])
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        if not torch.equal(first, toks):
+            return "generate: two runs gave different tokens"
+        if toks.shape != (LM_BATCH, LM_NEW) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            return f"generate: tokens {tuple(toks.shape)} out of range"
+        print(f"lm {LM_ARCH} bf16 ({out['params']} parameters): generate "
+              f"{LM_BATCH} x {LM_PROMPT} + {LM_NEW}: prefill "
+              f"{out['ms_per_prefill']:.3f} ms, decode step "
+              f"{out['ms_per_decode_step']:.3f} ms, "
+              f"{out['decode_tokens_per_s']:.1f} tokens/s, peak "
+              f"{out['max_memory_allocated'] / 2**30:.2f} GiB (earlier "
+              f"phases hold {out['memory_allocated_before'] / 2**30:.2f}) "
+              f"[{smi}]")
+        return cascade(model, params, prompts)
+
+    def cascade(model, params, prompts):
+        cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_CASCADE_STEPS)
+        logits, cache = model.prefill(params, prompts, cache)
+        tok0 = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)
+        plain = make_decode_step(model)
+
+        def run(step, n):
+            """Tokens and the third outputs (depths; a plain step's
+            logits) of ``n`` steps from the prompts' cache."""
+            tok, c, seen, thirds = tok0, cache, [], []
+            for _ in range(n):
+                tok, c, third = step(params, tok, c)
+                seen.append(tok)
+                thirds.append(third)
+            return torch.stack(seen), thirds
+
+        want, _ = run(plain, LM_CASCADE_STEPS)
+        never = make_cascade_decode_step(model, ExitConfig(
+            (3, 7, 11), (1.01,) * 3))
+        got, depths = run(never, LM_CASCADE_STEPS)
+        if not torch.equal(got, want) or not all(
+                bool((d == model.n_scan).all()) for d in depths):
+            return "cascade: thresholds above 1 changed tokens or depths"
+        _, depths = run(make_cascade_decode_step(
+            model, ExitConfig((3,), (0.0,))), 2)
+        if not all(bool((d == 4).all()) for d in depths):
+            return f"cascade: threshold 0 after group 3 gave {depths}"
+        middle = make_cascade_decode_step(model, ExitConfig(
+            (3, 7, 11), (0.6, 0.5, 0.4)))
+        _, depths = run(middle, LM_CASCADE_STEPS)
+        d = torch.stack(depths)
+        batcher = CascadeBatcher(model.n_scan)
+        for row in d.tolist():
+            for b, depth in enumerate(row):
+                batcher.observe(b, float(depth))
+        wave = sum(batcher.group_budget(batcher.bucket(b))
+                   for b in range(LM_BATCH))
+        full = LM_BATCH * model.n_scan
+        out["cascade"] = {
+            "exit_groups": [3, 7, 11], "thresholds": [0.6, 0.5, 0.4],
+            "mean_depth": float(d.float().mean()), "min_depth": int(d.min()),
+            "max_depth": int(d.max()),
+            "executed_fraction": expected_depth(d, model.n_scan),
+            "wave_groups_per_step": wave, "full_groups_per_step": full,
+            "modelled_saving": 1 - wave / full,
+            "ms_per_step": cuda_ms(torch, lambda: middle(
+                params, tok0, cache), 5),
+            "plain_ms_per_step": cuda_ms(torch, lambda: plain(
+                params, tok0, cache), 5)}
+        c = out["cascade"]
+        print(f"lm cascade exits after groups 3/7/11 at (0.6, 0.5, 0.4): "
+              f"exit depth (of {model.n_scan} groups) mean "
+              f"{c['mean_depth']:.2f}, min {c['min_depth']}, max "
+              f"{c['max_depth']}; executed fraction "
+              f"{c['executed_fraction']:.1%}; wave-compaction layer-groups"
+              f"/step {wave} vs full {full}: modelled saving "
+              f"{c['modelled_saving']:.1%}; {c['ms_per_step']:.3f} ms per "
+              f"cascade step vs {c['plain_ms_per_step']:.3f} plain [{smi}]")
+        return ""
+
+    def card_vs_cpu():
+        cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
+        gpu, cpu = Model(cfg32, dev), Model(cfg32, "cpu")
+        p_gpu = gpu.init(torch.Generator(device=dev).manual_seed(SEED))
+        p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+        prompt = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+            0, cfg.vocab_size, (LM_CHECK["batch"], LM_CHECK["prompt"])))
+        runs, seconds = [], []
+        for m, p in ((gpu, p_gpu), (cpu, p_cpu)):
+            t0 = time.perf_counter()
+            cache = m.init_cache(LM_CHECK["batch"],
+                                 LM_CHECK["prompt"] + LM_CHECK["steps"])
+            lg, cache = m.prefill(p, prompt.to(m.device), cache)
+            logits, toks = [lg], []
+            for _ in range(LM_CHECK["steps"]):
+                toks.append(torch.argmax(lg[:, -1], -1))
+                lg, cache = m.decode_step(p, toks[-1], cache)
+                logits.append(lg)
+            runs.append((torch.cat(logits, 1).cpu(),
+                         torch.stack(toks).cpu()))
+            seconds.append(time.perf_counter() - t0)
+        (lg_g, tok_g), (lg_c, tok_c) = runs
+        err = float((lg_g - lg_c).abs().max())
+        out["card_vs_cpu"] = {"dtype": "float32", "prompt": LM_CHECK["prompt"],
+                              "steps": LM_CHECK["steps"], "max_abs_err": err,
+                              "atol": LM_CHECK["atol"],
+                              "tokens_equal": bool(torch.equal(tok_g,
+                                                               tok_c)),
+                              "card_seconds": seconds[0],
+                              "cpu_seconds": seconds[1]}
+        print(f"lm card vs CPU (float32, TF32 off, {LM_CHECK['prompt']}-"
+              f"token prompt + {LM_CHECK['steps']} steps): logits max abs "
+              f"err {err:.3g} (atol {LM_CHECK['atol']}), tokens equal "
+              f"{out['card_vs_cpu']['tokens_equal']}; card "
+              f"{seconds[0]:.1f} s, CPU {seconds[1]:.1f} s")
+        if not (err <= LM_CHECK["atol"]) or not torch.equal(tok_g, tok_c):
+            return "card vs CPU: logits or greedy tokens differ"
+        return ""
+
+    def attention():
+        B, S, Hh, D = LM_ATTN_SHAPE
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        q, k, v = (torch.randn(LM_ATTN_SHAPE, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        chunks = (cfg.attn_chunk_q, cfg.attn_chunk_kv)
+        got = flash_attention(q, k, v, True, None, *chunks).float()
+
+        def ulp(x):
+            """bf16's spacing at float32 ``x``: 2^(floor(log2 |x|) - 7)."""
+            return torch.exp2(torch.floor(torch.log2(x.abs())) - 7)
+
+        want = attention_reference(q, k, v, True).float()
+        err = (got - want).abs()
+        sigma = rounding_sigma(torch, q, k, v)
+        # past the output roundings (half an ulp of each side), in sigmas
+        z = float(((err - (ulp(got) + ulp(want)) / 2).clamp_min(0)
+                   / sigma.clamp_min(1e-30)).max())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        flops = 2 * 2 * B * Hh * S * (S + 1) / 2 * D     # causal QK^T, PV
+        b_ms = max(4 * q.numel() * 2 / MEM_BPS, flops / BF16_OPS) * 1e3
+        out["attention"] = {
+            "shape": list(LM_ATTN_SHAPE), "dtype": "bfloat16",
+            "chunks": list(chunks),
+            "max_abs_err": float(err.max()), "max_sigmas": z,
+            "sigmas_allowed": LM_ATTN_SIGMAS,
+            "ms": cuda_ms(torch, lambda: flash_attention(
+                q, k, v, True, None, *chunks), 5),
+            "oracle_ms": cuda_ms(torch, lambda: attention_reference(
+                q, k, v, True), 3),
+            "sdpa_ms": cuda_ms(torch, lambda: sdpa(qt, kt, vt,
+                                                   is_causal=True), 10),
+            "bound_ms": b_ms, "bound_by": "operations (bf16 tensor rate)"}
+        a = out["attention"]
+        print(f"lm attention {LM_ATTN_SHAPE} bf16 causal, chunks "
+              f"{chunks}: blockwise flash {a['ms']:.3f} ms; vs the oracle "
+              f"max abs err {a['max_abs_err']:.3g}, at most {z:.2f} sigmas "
+              f"of its bf16 probabilities past the output roundings "
+              f"(allowed {LM_ATTN_SIGMAS}); oracle {a['oracle_ms']:.3f} ms, "
+              f"sdpa {a['sdpa_ms']:.3f} ms, bound {b_ms:.4f} ms [{smi}]")
+        if not z <= LM_ATTN_SIGMAS:
+            return (f"attention: an entry {z:.2f} sigmas past the oracle "
+                    f"(allowed {LM_ATTN_SIGMAS})")
+        return ""
+
+    def phase():
+        for part in (serve, card_vs_cpu, attention):
+            err = part()
+            torch.cuda.empty_cache()
+            if err:
+                return err
+        return ""
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        err, path_err = on_path("lm", phase, (),
+                                tuple(KERNEL_ENTRIES.values()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, err or path_err
+
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -1966,6 +2295,13 @@ def main() -> int:
     print(f"training phase: {training['seconds']:.1f} s")
     report["training"] = training
 
+    # ----------------------------------------------------- 10. LM serving
+    lm, err = check_lm(torch, on_path, smi)
+    if err:
+        return fail(f"LM serving: {err}")
+    print(f"LM serving phase: {lm['seconds']:.1f} s")
+    report["lm"] = lm
+
     # each kernel's launches are those of the first path that runs it: S, A
     # and C on the fused flush, B on the split flush, D on the kernel API
     launch_path = {split_b: "split", inv_d_k: "kernel_api"}
@@ -1983,6 +2319,7 @@ def main() -> int:
     print(json.dumps({"service": service}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"lm": lm}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,6 +3,7 @@
 
     python3 scripts/port_profile.py [--flushes 3] [--head fused|split]
                                     [--calibrated] [--stream [FRAMES]]
+                                    [--lm [STEPS]]
 
 Builds the port's kernels, warms ``Detector.detect_batch`` (packed
 strategy) on the main path's workload as ``chip_smoke.main_path_workload``
@@ -32,6 +33,16 @@ time by operation, the device operations, the idle share and the host's
 decode and grouping of the survivors, then the device step of one of
 those frames alone (``chip_smoke.stream_step_replay``).  Writes
 ``chiprun_out/port_profile_stream.json``.
+
+``--lm`` instead traces LM serving as ``chip_smoke.py``'s phase 10 runs
+it (``olmo-1b`` at full width in bf16, weights from seed 0, 8 seeded
+prompts of 512 tokens): one prefill, then ``STEPS`` (default 8) greedy
+decode steps, each: host wall time, device time by operation, device
+operations and the idle share.  Before and after the traces it times
+the same prefill and decode steps untraced (host clock around each call,
+synchronised; the median): a process that has run ``torch.profiler``
+may launch more slowly afterwards.  Writes
+``chiprun_out/port_profile_lm.json``.
 Needs a CUDA card; fails without one.
 """
 
@@ -39,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -54,6 +66,8 @@ def main() -> int:
     ap.add_argument("--calibrated", action="store_true")
     ap.add_argument("--stream", type=int, nargs="?", const=4, default=0,
                     metavar="FRAMES")
+    ap.add_argument("--lm", type=int, nargs="?", const=8, default=0,
+                    metavar="STEPS")
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -70,6 +84,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
+    if args.lm:
+        return profile_lm(torch, smi, args.lm)
     native.build_all()
     if args.stream:
         return profile_stream(torch, smi, args.stream)
@@ -224,6 +240,88 @@ def profile_stream(torch, smi: str, n_frames: int) -> int:
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
     (dest / "port_profile_stream.json").write_text(json.dumps(out, indent=1))
+    return 0
+
+
+def profile_lm(torch, smi: str, n_steps: int) -> int:
+    """``--lm``: trace one prefill and ``n_steps`` decode steps of phase
+    10's LM serving."""
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import LM_ARCH, LM_BATCH, LM_PROMPT, lm_workload
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    model, params, prompts = lm_workload(torch, "cuda")
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+
+    def prefill_once():
+        return prefill(params, prompts, model.init_cache(
+            LM_BATCH, LM_PROMPT + n_steps + 1))
+
+    logits, cache = prefill_once()                  # warm-up
+    tok, _, _ = decode(params, logits[:, -1].argmax(-1), cache)
+    torch.cuda.synchronize()
+
+    def untraced():
+        """Median host ms of 3 prefills and of ``n_steps`` decode steps,
+        each call synchronised."""
+        def ms(fn):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, res
+        state = {"c": cache, "t": tok}
+
+        def step():
+            state["t"], state["c"], _ = decode(params, state["t"],
+                                               state["c"])
+        return {"prefill_ms": statistics.median(
+                    ms(prefill_once)[0] for _ in range(3)),
+                "decode_step_ms": statistics.median(
+                    ms(step)[0] for _ in range(n_steps))}
+
+    out = {"card": smi, "arch": LM_ARCH, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "steps": n_steps,
+           "untraced_before": untraced()}
+    for label, reps, fn in (("prefill", 1, prefill_once),
+                            ("decode_step", n_steps, None)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if fn is not None:
+                fn()
+            else:
+                c, t = cache, tok
+                for _ in range(reps):
+                    t, c, _ = decode(params, t, c)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        events = device_events(prof)
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3 \
+            / reps
+        ops = sum(e.count for e in events) / reps
+        out[label] = {
+            "wall_ms": wall_ms, "device_ms": device_ms, "device_ops": ops,
+            "idle_share": 1.0 - device_ms / wall_ms,
+            "top": [{"name": e.key, "calls": e.count / reps,
+                     "device_ms": e.self_device_time_total / 1e3 / reps}
+                    for e in events[:15]]}
+        print(f"lm {label}: wall {wall_ms:.2f} ms, device {device_ms:.3f} "
+              f"ms, {ops:.0f} device operations, idle share "
+              f"{out[label]['idle_share']:.3f} [{smi}]")
+        for t in out[label]["top"]:
+            print(f"  {t['device_ms']:9.3f} ms  {t['calls']:7.1f} calls  "
+                  f"{t['name'][:90]}")
+        if not events:
+            print("port_profile: the trace holds no device time",
+                  file=sys.stderr)
+            return 1
+    out["untraced_after"] = untraced()
+    for k in ("untraced_before", "untraced_after"):
+        print(f"lm {k.replace('_', ' ')} the traces: prefill "
+              f"{out[k]['prefill_ms']:.2f} ms, decode step "
+              f"{out[k]['decode_step_ms']:.2f} ms [{smi}]")
+    dest = ROOT / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    (dest / "port_profile_lm.json").write_text(json.dumps(out, indent=1))
     return 0
 
 

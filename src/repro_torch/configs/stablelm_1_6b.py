@@ -1,0 +1,33 @@
+"""StableLM-2 1.6B (hf:stabilityai/stablelm-2-1_6b; unverified) —
+24L d_model=2048 32H (MHA kv=32) d_ff=5632 vocab=100352, LayerNorm,
+partial rotary (25%)."""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b",
+    family="dense",
+    n_layers=24,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=5632,
+    vocab_size=100352,
+    norm="layernorm",
+    rope_frac=0.25,
+)
+
+SMOKE = ModelConfig(
+    param_dtype="float32",
+    compute_dtype="float32",
+    name="stablelm-smoke",
+    family="dense",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=4,
+    d_ff=128,
+    vocab_size=512,
+    norm="layernorm",
+    rope_frac=0.25,
+)

@@ -49,6 +49,7 @@ from .features import stage_sum_windows
 from .integral import window_inv_sigma
 from .pyramid import downscale_indices, downscale_nearest
 from . import nms
+from repro_torch.device import resolve_device
 from repro_torch.kernels import autotune as kautotune
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import packed_tail
@@ -109,17 +110,6 @@ def calibrate_capacities(alive_counts, n_windows: int,
     counts: ``min(1, count / n_windows * safety + 1e-3)`` each."""
     fr = np.asarray(alive_counts, np.float64) / max(n_windows, 1)
     return tuple(float(min(1.0, f * safety + 1e-3)) for f in fr)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` unless the caller names a device; no card and no explicit
-    request is an error, never a silent CPU run."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "port on the CPU")
-    return torch.device("cuda")
 
 
 def nonzero_static(mask: torch.Tensor, cap: int):

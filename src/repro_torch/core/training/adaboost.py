@@ -42,8 +42,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...device import resolve_device
 from ..cascade import WINDOW, MAX_RECTS, make_cascade
-from ..engine import resolve_device
 from ..integral import div_rn, integral_image, inv_sigma_of
 from .data import window_dataset, sample_negative
 

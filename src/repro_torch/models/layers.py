@@ -1,0 +1,294 @@
+"""Shared neural layers: norms, RoPE, blockwise flash attention, gated MLPs.
+
+Pure functions over explicit parameter dicts of tensors, as in the
+reference: the stacked-layer walk in ``transformer.py`` treats parameters
+as data.  Parameters are drawn by a :class:`ParamRng` (one
+``torch.Generator`` on one device; shapes only on ``meta``).
+
+Cast points follow the reference: ``dense`` is a same-dtype matmul (bf16
+out in bf16 configs); attention scores and P·V accumulate in float32 (the
+reference's ``preferred_element_type``), with the probabilities rounded to
+the value dtype before P·V; norms and RoPE compute in float32 and cast
+back.  A float32-accumulated product of low-precision operands is taken
+as the float32 product of the operands upcast (exact for bf16 inputs).
+
+``flash_attention`` is the forward of the reference's blockwise jnp
+attention (online softmax over kv blocks of ``chunk_kv``, q blocks of
+``chunk_q``, inputs padded to chunk multiples); it never materialises
+(S x Sk).  Its backward comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = ["ParamRng", "mm32", "activation", "rmsnorm", "layernorm",
+           "init_norm", "apply_norm", "rope_freqs", "apply_rope",
+           "flash_attention", "attention_reference", "decode_attention",
+           "gated_mlp", "init_gated_mlp", "init_dense", "dense", "NEG_INF"]
+
+NEG_INF = -1e30
+
+
+class ParamRng:
+    """Draws parameters in order from one generator on one device; on the
+    ``meta`` device it makes shapes only (no generator, no memory)."""
+
+    def __init__(self, device, generator: torch.Generator | None = None):
+        self.device = torch.device(device)
+        self.meta = self.device.type == "meta"
+        if generator is None and not self.meta:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self.generator = generator
+
+    def normal(self, shape, std: float, dtype) -> torch.Tensor:
+        """float32 N(0, std²) draws, cast to ``dtype``."""
+        if self.meta:
+            return torch.empty(shape, dtype=dtype, device="meta")
+        x = torch.randn(shape, generator=self.generator, device=self.device,
+                        dtype=torch.float32)
+        return (x * std).to(dtype)
+
+    def full(self, shape, value: float, dtype) -> torch.Tensor:
+        return torch.full(shape, value, dtype=dtype, device=self.device)
+
+    def tensor(self, values: np.ndarray, dtype) -> torch.Tensor:
+        if self.meta:
+            return torch.empty(values.shape, dtype=dtype, device="meta")
+        return torch.as_tensor(values, dtype=dtype, device=self.device)
+
+
+def mm32(a: torch.Tensor, b: torch.Tensor, spec: str) -> torch.Tensor:
+    """``einsum(spec, a, b)`` accumulated and returned in float32."""
+    return torch.einsum(spec, a.float(), b.float())
+
+
+def activation(x: torch.Tensor, act: str) -> torch.Tensor:
+    """SwiGLU's silu or GeGLU's gelu (``jax.nn.gelu``'s tanh form)."""
+    return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
+
+
+# --------------------------------------------------------------------- norms
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * scale.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor | None,
+              bias: torch.Tensor | None, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def init_norm(rng: ParamRng, kind: str, dim: int, dtype) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": rng.full((dim,), 1.0, dtype)}
+    if kind == "layernorm":
+        return {"scale": rng.full((dim,), 1.0, dtype),
+                "bias": rng.full((dim,), 0.0, dtype)}
+    if kind == "layernorm_np":          # OLMo: non-parametric LN
+        return {}
+    raise ValueError(kind)
+
+
+def apply_norm(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    if kind == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
+    if kind == "layernorm_np":
+        return layernorm(x, None, None)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------- rope
+def rope_freqs(head_dim: int, theta: float, frac: float = 1.0) -> np.ndarray:
+    """Inverse frequencies for the rotated prefix of the head dim."""
+    rot = int(head_dim * frac) // 2 * 2
+    return 1.0 / (theta ** (np.arange(0, rot, 2, np.float32) / rot))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               frac: float = 1.0) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to x.shape[:-2].
+    Rotate-half on the first ``int(D * frac) // 2 * 2`` dims."""
+    d = x.shape[-1]
+    rot = int(d * frac) // 2 * 2
+    if rot == 0:
+        return x
+    inv = torch.from_numpy(rope_freqs(d, theta, frac)).to(x.device)
+    ang = positions.float()[..., None] * inv                # (..., S, rot/2)
+    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, rot/2)
+    sin = torch.sin(ang)[..., None, :]
+    xr = x[..., :rot].float()
+    x1, x2 = xr[..., :rot // 2], xr[..., rot // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return torch.cat([out.to(x.dtype), x[..., rot:]], -1)
+
+
+# ----------------------------------------------------------- flash attention
+def _mask_block(q0, kv0, Tq, Tk, S, Sk, causal, window, device):
+    """(Tq, Tk) bool validity mask for a (q-block, kv-block) pair."""
+    qpos = q0 + torch.arange(Tq, device=device)[:, None]
+    kpos = kv0 + torch.arange(Tk, device=device)[None, :]
+    mask = (qpos < S) & (kpos < Sk)           # exclude padding
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def _blockwise_fwd(q, k, v, q0, S, Sk, causal, window, chunk_kv, scale):
+    """Online softmax over kv blocks for one q block.
+
+    q: (B, Tq, Hk, G, D); k/v: (B, Skp, Hk, D[v]).  Returns o (B, Hk, G,
+    Tq, Dv) float32, normalised.  A kv block that the causal or window
+    mask hides from every row of the block is skipped: in the reference it
+    leaves (o, m, l) bit for bit as they were (alpha = 1, p = 0).
+    """
+    B, Tq, Hk, G, D = q.shape
+    Dv = v.shape[-1]
+    dev = q.device
+    o = torch.zeros((B, Hk, G, Tq, Dv), dtype=torch.float32, device=dev)
+    m = torch.full((B, Hk, G, Tq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hk, G, Tq), dtype=torch.float32, device=dev)
+    qf = q.float()
+    for kv0 in range(0, k.shape[1], chunk_kv):
+        if causal and kv0 > q0 + Tq - 1:
+            continue
+        if window is not None and q0 - (kv0 + chunk_kv - 1) >= window:
+            continue
+        ks = k[:, kv0:kv0 + chunk_kv].float()
+        vs = v[:, kv0:kv0 + chunk_kv]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, ks) * scale
+        mask = _mask_block(q0, kv0, Tq, chunk_kv, S, Sk, causal, window, dev)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        # guard: rows with no valid key yet keep p = 0 (not exp(0))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        pv = mm32(p.to(v.dtype), vs, "bhgqk,bkhd->bhgqd")
+        o = o * alpha[..., None] + pv
+        m = m_new
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
+                    chunk_q: int = 512, chunk_kv: int = 1024,
+                    softmax_scale: float | None = None) -> torch.Tensor:
+    """Memory-efficient multi-head attention with GQA (forward).
+
+    q: (B, S, Hq, D); k, v: (B, Sk, Hkv, D[v]) with Hq % Hkv == 0 and
+    q/k positions aligned at 0 (prefill).  The live score block is (B, Hq,
+    chunk_q, chunk_kv) float32.
+    """
+    B, S, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    cq = min(chunk_q, S)
+    ckv = min(chunk_kv, Sk)
+    Sp = -(-S // cq) * cq
+    Skp = -(-Sk // ckv) * ckv
+    qp = F.pad(q, (0, 0, 0, 0, 0, Sp - S))
+    kp = F.pad(k, (0, 0, 0, 0, 0, Skp - Sk))
+    vp = F.pad(v, (0, 0, 0, 0, 0, Skp - Sk))
+    qg = qp.reshape(B, Sp // cq, cq, Hkv, G, D)
+    o = torch.stack([_blockwise_fwd(qg[:, i], kp, vp, i * cq, S, Sk, causal,
+                                    window, ckv, scale)
+                     for i in range(Sp // cq)], 1)
+    # o: (B, nq, Hkv, G, cq, Dv) -> (B, Sp, Hq, Dv)
+    o = o.permute(0, 1, 4, 2, 3, 5).reshape(B, Sp, Hq, Dv)[:, :S]
+    return o.to(q.dtype)
+
+
+def attention_reference(q, k, v, causal: bool = True,
+                        window: int | None = None,
+                        softmax_scale: float | None = None) -> torch.Tensor:
+    """Naive O(S²) oracle (same GQA contract; supports Sk ≥ S with
+    right-aligned queries)."""
+    B, S, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    qf = q.reshape(B, S, Hkv, G, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    qpos = torch.arange(S, device=q.device)[:, None] + (Sk - S)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, -1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, S, Hq, v.shape[-1]).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, window=None,
+                     softmax_scale=None) -> torch.Tensor:
+    """Single-token attention over a (possibly longer, masked) cache.
+
+    q: (B, 1, Hq, D); caches: (B, Smax, Hkv, D); ``cache_len``: (B,) or
+    scalar count of valid entries (the new token's K/V already written).
+    """
+    B, _, Hq, D = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    s = mm32(q.reshape(B, Hkv, G, D), k_cache, "bhgd,bkhd->bhgk") * scale
+    pos = torch.arange(Smax, device=q.device)[None, :]
+    clen = torch.as_tensor(cache_len, device=q.device).broadcast_to(
+        (B,)).reshape(B, 1)
+    mask = pos < clen
+    if window is not None:
+        mask &= pos >= clen - window
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, -1)
+    o = mm32(p.to(v_cache.dtype), v_cache, "bhgk,bkhd->bhgd")
+    return o.reshape(B, 1, Hq, v_cache.shape[-1]).to(q.dtype)
+
+
+# ----------------------------------------------------------------- MLP/dense
+def init_dense(rng: ParamRng, d_in: int, d_out: int, dtype,
+               bias: bool = False, scale: float | None = None) -> dict:
+    std = scale if scale is not None else d_in ** -0.5
+    p = {"w": rng.normal((d_in, d_out), std, dtype)}
+    if bias:
+        p["b"] = rng.full((d_out,), 0.0, dtype)
+    return p
+
+
+def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Same-dtype matmul (bf16 out for bf16 inputs), as the reference's."""
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def init_gated_mlp(rng: ParamRng, d_model: int, d_ff: int, dtype) -> dict:
+    return {"wi": init_dense(rng, d_model, d_ff, dtype),
+            "wg": init_dense(rng, d_model, d_ff, dtype),
+            "wo": init_dense(rng, d_ff, d_model, dtype, scale=d_ff ** -0.5)}
+
+
+def gated_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    g = dense(p["wg"], x)
+    h = dense(p["wi"], x)
+    return dense(p["wo"], activation(g, act) * h)

@@ -1,0 +1,140 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427).
+
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t²) * (i_t * u_t)
+    a_t = exp(-c · softplus(Λ) * σ(r_t))
+
+Gates r, i are block-diagonal linear maps (n_heads blocks).  Prefill and
+forward scan over time in log2(S) doubling steps (the reference takes an
+associative scan: the same recurrence, summed in another order); decode is
+the O(1) recurrence.  The block wraps the recurrence Griffin-style: gelu
+gate branch * (conv1d -> RG-LRU) branch.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .layers import ParamRng, activation, init_dense, dense
+
+__all__ = ["init_rglru", "rglru_block", "init_rglru_cache"]
+
+
+def _block_linear(w: torch.Tensor, x: torch.Tensor,
+                  n_heads: int) -> torch.Tensor:
+    """Block-diagonal (H, w, w) map over (B, S, W=H·w)."""
+    B, S, W = x.shape
+    xh = x.reshape(B, S, n_heads, W // n_heads)
+    y = torch.einsum("bshi,hij->bshj", xh, w.to(x.dtype))
+    return y.reshape(x.shape)
+
+
+def init_rglru(rng: ParamRng, cfg, dtype) -> dict:
+    g = cfg.rglru
+    D, W, H = cfg.d_model, g.width, cfg.n_heads
+    wh = W // H
+    std = wh ** -0.5
+    # softplus^-1 so that a^c lies in [0.9, 0.999]
+    lin = torch.linspace(0.9, 0.999, W, dtype=torch.float32)
+    lam = torch.log(torch.expm1(-torch.log(lin) / g.c))
+    return {
+        "wy": init_dense(rng, D, W, dtype),            # gelu gate branch
+        "wx": init_dense(rng, D, W, dtype),            # recurrence branch
+        "conv": {"w": rng.normal((W, g.conv_width), 0.1, dtype),
+                 "b": rng.full((W,), 0.0, dtype)},
+        "gate": {"r": {"blocks": rng.normal((H, wh, wh), std, dtype),
+                       "b": rng.full((W,), 0.0, dtype)},
+                 "i": {"blocks": rng.normal((H, wh, wh), std, dtype),
+                       "b": rng.full((W,), 0.0, dtype)}},
+        "lam": rng.tensor(lam.numpy(), torch.float32),   # Λ (W,) fp32
+        "out_proj": init_dense(rng, W, D, dtype, scale=W ** -0.5),
+    }
+
+
+def _causal_conv(p, x, conv_state=None):
+    """Depthwise causal conv1d; x: (B, S, W), weight (W, cw).
+
+    ``conv_state``: (B, cw-1, W) carry for decode; returns (y, new_state).
+    """
+    W, cw = p["w"].shape
+    if conv_state is None:
+        pad = torch.zeros((x.shape[0], cw - 1, W), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = conv_state.to(x.dtype)
+    xp = torch.cat([pad, x], 1)                          # (B, S+cw-1, W)
+    w = p["w"].to(x.dtype)
+    y = sum(xp[:, i:i + x.shape[1]] * w[None, None, :, i] for i in range(cw))
+    y = y + p["b"].to(x.dtype)
+    new_state = xp[:, -(cw - 1):] if cw > 1 else pad
+    return y, new_state
+
+
+def _rglru_scan(log_a: torch.Tensor, bx: torch.Tensor, h0=None):
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t over axis 1 (time).
+
+    log_a, bx: (B, S, W) fp32.  Returns h (B, S, W) fp32.  Step k
+    combines each element with the one 2^k before it, (a1, b1) then (a2,
+    b2) -> (a1 + a2, exp(a2) b1 + b2), the reference's combine.
+    """
+    if h0 is not None:
+        # fold the initial state into the first step
+        bx = bx.clone()
+        bx[:, 0] += torch.exp(log_a[:, 0]) * h0
+    a, b = log_a, bx
+    S = a.shape[1]
+    for k in range(math.ceil(math.log2(S)) if S > 1 else 0):
+        sh = 1 << k
+        a_prev = F.pad(a[:, :-sh], (0, 0, sh, 0))        # identity (0, 0)
+        b_prev = F.pad(b[:, :-sh], (0, 0, sh, 0))
+        b = torch.exp(a) * b_prev + b
+        a = a_prev + a
+    return b
+
+
+def rglru_block(p: dict, x: torch.Tensor, cfg, *, cache=None,
+                cache_len=None):
+    """x: (B, S, D) -> (out, new_cache).  cache = {'h', 'conv'}."""
+    g = cfg.rglru
+    S = x.shape[1]
+    decode = cache is not None and S == 1 and cache_len is not None
+
+    y = activation(dense(p["wy"], x), "gelu")             # (B,S,W)
+    u = dense(p["wx"], x)
+    u, conv_state = _causal_conv(p["conv"], u,
+                                 cache["conv"] if decode else None)
+
+    r = _block_linear(p["gate"]["r"]["blocks"], u, cfg.n_heads) \
+        + p["gate"]["r"]["b"].to(u.dtype)
+    i = _block_linear(p["gate"]["i"]["blocks"], u, cfg.n_heads) \
+        + p["gate"]["i"]["b"].to(u.dtype)
+    decay = -g.c * F.softplus(p["lam"])                   # (W,) fp32, < 0
+    log_a = decay * torch.sigmoid(r.float())               # (B,S,W)
+    gated = torch.sigmoid(i.float()) * u.float()
+    bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) \
+        * gated
+
+    if decode:
+        h_prev = cache["h"].float()                       # (B, W)
+        h = torch.exp(log_a[:, 0]) * h_prev + bx[:, 0]
+        new_cache = {"h": h.to(cache["h"].dtype), "conv": conv_state}
+        hs = h[:, None]
+    else:
+        h0 = cache["h"].float() if cache is not None else None
+        hs = _rglru_scan(log_a, bx, h0)
+        new_cache = None
+        if cache is not None:        # prefill: persist the final state
+            new_cache = {"h": hs[:, -1].to(cache["h"].dtype),
+                         "conv": conv_state}
+    out = dense(p["out_proj"], (y.float() * hs).to(x.dtype))
+    return out, new_cache
+
+
+def init_rglru_cache(cfg, batch: int, dtype, device) -> dict:
+    g = cfg.rglru
+    return {"h": torch.zeros((batch, g.width), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, g.conv_width - 1, g.width),
+                                dtype=dtype, device=device)}

@@ -1,0 +1,350 @@
+"""Composable decoder LM over a per-layer block pattern.
+
+One ``Model`` covers all ten assigned architectures, as the reference's:
+
+- the config's ``block_pattern`` is split into (prelude, scanned
+  super-blocks, postlude): DeepSeek-V2's first dense-FFN layer is the
+  prelude; RecurrentGemma's (R, R, A) pattern is one super-block of three
+  sub-layers; uniform stacks have super-blocks of one;
+- scanned layer parameters are stacked on a leading dim, in the
+  reference's layout (``params_from_reference`` carries its pytree over
+  as is); the walk takes group ``i``'s views in a loop.  Caches are
+  listed per group;
+- modes: ``forward`` (logits), ``prefill`` (last logits + cache),
+  ``decode_step`` (one token + cache update).  Caches are not written in
+  place: each step returns a new one.
+
+The reference's mesh paths (sharded groups, the MoE ``shard_map``, the
+2D decode layout, sequence parallelism) wait for the distributed slice;
+this ``Model`` runs on one device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from . import attn as attn_mod
+from . import mla as mla_mod
+from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import ssd as ssd_mod
+from .layers import (ParamRng, init_norm, apply_norm, init_gated_mlp,
+                     gated_mlp, init_dense, mm32)
+
+__all__ = ["Model", "param_count", "params_from_reference",
+           "layer_groups", "tree_map", "tree_leaves"]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts / lists of equal structure."""
+    t = trees[0]
+    if isinstance(t, dict):
+        if any(x.keys() != t.keys() for x in trees[1:]):
+            raise ValueError(f"dict keys differ: {[list(x) for x in trees]}")
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (list, tuple)):
+        if any(len(x) != len(t) for x in trees[1:]):
+            raise ValueError("list lengths differ")
+        return [tree_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts / lists, in ``tree_map``'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+# ----------------------------------------------------------------- grouping
+def layer_groups(cfg: ModelConfig):
+    """(prelude_kinds, superblock_kinds, n_scan, postlude_kinds)."""
+    pat = list(cfg.block_pattern)
+    pre: list[str] = []
+    if cfg.moe is not None and cfg.moe.first_dense:
+        pre = pat[:cfg.moe.first_dense]
+        pat = pat[cfg.moe.first_dense:]
+    if cfg.rglru is not None:
+        sb = list(cfg.rglru.pattern)
+        n_scan = len(pat) // len(sb)
+        post = pat[n_scan * len(sb):]
+        return pre, sb, n_scan, post
+    return pre, pat[:1] if pat else [], len(pat), []
+
+
+# ------------------------------------------------------------------- blocks
+def init_block(rng: ParamRng, cfg: ModelConfig, kind: str, moe_layer: bool,
+               dtype):
+    p: dict = {"norm1": init_norm(rng, cfg.norm, cfg.d_model, dtype)}
+    if kind == "attn":
+        if cfg.mla is not None:
+            p["mixer"] = mla_mod.init_mla(rng, cfg, dtype)
+        else:
+            p["mixer"] = attn_mod.init_attn(rng, cfg, dtype)
+    elif kind == "rglru":
+        p["mixer"] = rglru_mod.init_rglru(rng, cfg, dtype)
+    elif kind == "ssd":
+        p["mixer"] = ssd_mod.init_ssd(rng, cfg, dtype)
+    else:
+        raise ValueError(kind)
+    if kind == "ssd" or cfg.d_ff == 0:
+        return p                      # mamba2: mixer-only block
+    p["norm2"] = init_norm(rng, cfg.norm, cfg.d_model, dtype)
+    if moe_layer:
+        p["ffn"] = {"moe": moe_mod.init_moe(rng, cfg, dtype)}
+        mo = cfg.moe
+        if mo.n_shared:
+            Fs = (mo.d_shared or mo.d_expert) * mo.n_shared
+            p["ffn"]["shared"] = init_gated_mlp(rng, cfg.d_model, Fs, dtype)
+    else:
+        p["ffn"] = {"mlp": init_gated_mlp(rng, cfg.d_model, cfg.d_ff,
+                                          dtype)}
+    return p
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     dtype, device):
+    if kind == "attn":
+        if cfg.mla is not None:
+            return mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device)
+        window = cfg.rglru.window if cfg.rglru is not None else None
+        return attn_mod.init_attn_cache(cfg, batch, max_len, dtype, device,
+                                        window)
+    if kind == "rglru":
+        return rglru_mod.init_rglru_cache(cfg, batch, dtype, device)
+    if kind == "ssd":
+        return ssd_mod.init_ssd_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
+class Model:
+    """Functional model: ``init`` -> params dict; ``forward`` / ``prefill``
+    / ``decode_step`` over it.  ``device=None`` is the card (an error
+    without one); name ``"cpu"`` to run on the host."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.pre, self.sb, self.n_scan, self.post = layer_groups(cfg)
+        self.dtype = getattr(torch, cfg.param_dtype)
+        self.cdtype = getattr(torch, cfg.compute_dtype)
+
+    # ------------------------------------------------------------- params
+    def init(self, generator: torch.Generator | None = None) -> dict:
+        """Parameters drawn from ``generator`` (on the model's device;
+        seed 0 when None): the reference's shapes, dtypes and scales."""
+        cfg = self.cfg
+        dt = self.dtype
+        rng = ParamRng(self.device, generator)
+        params: dict = {
+            "embed": {"embedding": rng.normal(
+                (cfg.vocab_size, cfg.d_model), 1.0, dt)},
+            "final_norm": init_norm(rng, cfg.norm, cfg.d_model, dt),
+        }
+        if not cfg.tie_embeddings:
+            params["head"] = {"lm_head": rng.normal(
+                (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5, dt)}
+        if cfg.input_mode == "tokens+prefix":
+            params["prefix"] = {"prefix_proj": init_dense(
+                rng, cfg.d_model, cfg.d_model, dt)["w"]}
+        if self.pre:
+            params["prelude"] = [init_block(rng, cfg, kind, False, dt)
+                                 for kind in self.pre]
+        if self.n_scan:
+            moe_layer = cfg.moe is not None
+            groups = [[init_block(rng, cfg, kind, moe_layer, dt)
+                       for kind in self.sb] for _ in range(self.n_scan)]
+            params["scan"] = tree_map(lambda *xs: torch.stack(xs), *groups)
+        if self.post:
+            params["postlude"] = [init_block(rng, cfg, kind, False, dt)
+                                  for kind in self.post]
+        return params
+
+    # -------------------------------------------------------------- cache
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        cfg, dt, dev = self.cfg, self.cdtype, self.device
+
+        def blocks(kinds):
+            return [init_block_cache(cfg, k, batch, max_len, dt, dev)
+                    for k in kinds]
+
+        cache: dict = {"len": torch.zeros((), dtype=torch.int32, device=dev)}
+        if self.pre:
+            cache["prelude"] = blocks(self.pre)
+        if self.n_scan:
+            cache["scan"] = [blocks(self.sb) for _ in range(self.n_scan)]
+        if self.post:
+            cache["postlude"] = blocks(self.post)
+        return cache
+
+    # -------------------------------------------------------------- apply
+    def _block(self, p, x, kind: str, cache, cache_len, moe_layer: bool):
+        cfg = self.cfg
+        h = apply_norm(cfg.norm, p["norm1"], x)
+        if kind == "attn":
+            if cfg.mla is not None:
+                mix, new_cache = mla_mod.mla_block(
+                    p["mixer"], h, cfg, cache=cache, cache_len=cache_len)
+            else:
+                window = cfg.rglru.window if cfg.rglru is not None else None
+                mix, new_cache = attn_mod.attn_block(
+                    p["mixer"], h, cfg, window=window, cache=cache,
+                    cache_len=cache_len)
+        elif kind == "rglru":
+            mix, new_cache = rglru_mod.rglru_block(
+                p["mixer"], h, cfg, cache=cache, cache_len=cache_len)
+        elif kind == "ssd":
+            mix, new_cache = ssd_mod.ssd_block(
+                p["mixer"], h, cfg, cache=cache, cache_len=cache_len)
+        else:
+            raise ValueError(kind)
+        x = x + mix
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if "ffn" in p:
+            h2 = apply_norm(cfg.norm, p["norm2"], x)
+            f = p["ffn"]
+            if "moe" in f:
+                y, aux = moe_mod.moe_ffn(f["moe"], h2, cfg, act=cfg.act)
+                if "shared" in f:
+                    y = y + gated_mlp(f["shared"], h2, cfg.act)
+            else:
+                y = gated_mlp(f["mlp"], h2, cfg.act)
+            x = x + y
+        return x, new_cache, aux
+
+    def _embed(self, params, tokens, prefix_embeds=None):
+        cfg = self.cfg
+        x = F.embedding(tokens, params["embed"]["embedding"]).to(self.cdtype)
+        if cfg.input_mode == "tokens+prefix" and prefix_embeds is not None:
+            px = prefix_embeds.to(self.cdtype) \
+                @ params["prefix"]["prefix_proj"].to(self.cdtype)
+            x = torch.cat([px, x], 1)
+        elif cfg.input_mode == "embeddings" and prefix_embeds is not None:
+            x = prefix_embeds.to(self.cdtype)
+        return x
+
+    def _head(self, params, x):
+        """float32 logits of the final norm against the (tied) head."""
+        cfg = self.cfg
+        x = apply_norm(cfg.norm, params["final_norm"], x)
+        w = (params["embed"]["embedding"].T if cfg.tie_embeddings
+             else params["head"]["lm_head"])
+        return mm32(x, w.to(x.dtype), "bsd,dv->bsv")
+
+    def _stack_walk(self, params, x, cache, after_group=None):
+        """Run prelude -> scan groups -> postlude.  Returns (x, new_cache,
+        aux).  ``after_group(i, x)``, when given, sees the hidden state
+        after scan group ``i``."""
+        cfg = self.cfg
+        cache_len = cache["len"] if cache is not None else None
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        new_cache: dict | None = {} if cache is not None else None
+
+        def run(blocks, kinds, caches, moe_layer):
+            nonlocal x, aux_total
+            outs = []
+            for j, (p, kind) in enumerate(zip(blocks, kinds)):
+                c = caches[j] if caches is not None else None
+                x, nc, aux = self._block(p, x, kind, c, cache_len, moe_layer)
+                aux_total = aux_total + aux
+                outs.append(nc)
+            return outs
+
+        if self.pre:
+            outs = run(params["prelude"], self.pre,
+                       cache["prelude"] if cache is not None else None, False)
+            if cache is not None:
+                new_cache["prelude"] = outs
+        if self.n_scan:
+            moe_layer = cfg.moe is not None
+            outs = []
+            for i in range(self.n_scan):
+                gp = [tree_map(lambda t: t[i], group)
+                      for group in params["scan"]]
+                outs.append(run(gp, self.sb, cache["scan"][i]
+                                if cache is not None else None, moe_layer))
+                if after_group is not None:
+                    after_group(i, x)
+            if cache is not None:
+                new_cache["scan"] = outs
+        if self.post:
+            outs = run(params["postlude"], self.post,
+                       cache["postlude"] if cache is not None else None,
+                       False)
+            if cache is not None:
+                new_cache["postlude"] = outs
+        return x, new_cache, aux_total
+
+    # ------------------------------------------------------------ public
+    def forward(self, params, tokens, prefix_embeds=None):
+        """Forward: tokens (B, S) -> (logits (B, S(+px), V), aux)."""
+        x = self._embed(params, tokens, prefix_embeds)
+        x, _, aux = self._stack_walk(params, x, None)
+        return self._head(params, x), aux
+
+    def prefill(self, params, tokens, cache, prefix_embeds=None):
+        """Returns (logits_last (B, 1, V), cache')."""
+        x = self._embed(params, tokens, prefix_embeds)
+        x, new_cache, _ = self._stack_walk(params, x, cache)
+        new_cache["len"] = cache["len"] + x.shape[1]
+        return self._head(params, x[:, -1:]), new_cache
+
+    def decode_step(self, params, token, cache):
+        """token (B,) int -> (logits (B, 1, V), cache')."""
+        x = self._embed(params, token[:, None])
+        x, new_cache, _ = self._stack_walk(params, x, cache)
+        new_cache["len"] = cache["len"] + 1
+        return self._head(params, x), new_cache
+
+
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count from the shapes alone (``meta`` device: no
+    allocation)."""
+    total = 0
+
+    def visit(tree, names):
+        nonlocal total
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                visit(v, names + [k])
+        elif isinstance(tree, list):
+            for v in tree:
+                visit(v, names + [""])
+        else:
+            n = int(np.prod(tree.shape))
+            if active_only and cfg.moe is not None:
+                if "moe" in names and names[-1] in ("wi", "wg", "wo"):
+                    n = n * cfg.moe.top_k // cfg.moe.n_experts
+            total += n
+
+    visit(Model(cfg, "meta").init(), [])
+    return total
+
+
+def params_from_reference(cfg: ModelConfig, tree, device=None) -> dict:
+    """The port's parameters from the reference's pytree as numpy arrays
+    (``jax.tree.map(np.asarray, model.init(key))``).  Both packages keep
+    scan groups stacked on a leading axis, so the structure carries over
+    as is; it is checked leaf by leaf against the port's own shapes and
+    dtypes.  bf16 arrays (``ml_dtypes.bfloat16``, which ``from_numpy``
+    rejects) carry their bits over through int16."""
+    device = resolve_device(device)
+    want = Model(cfg, "meta").init()
+
+    def carry(ref, like):
+        a = np.asarray(ref)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a.copy())
+        if t.shape != like.shape or t.dtype != like.dtype:
+            raise ValueError(f"reference leaf {tuple(t.shape)} {t.dtype} is "
+                             f"not the port's {tuple(like.shape)} "
+                             f"{like.dtype}")
+        return t.to(device)
+
+    return tree_map(carry, tree, want)

@@ -1,7 +1,9 @@
-# The detection service, ported: the micro-batching DetectorService over the
-# port's Detector and stream sessions, the multi-tenant fleet scheduler on
-# top of it, and their typed stats.  The reference's LM serving steps
-# (serve/serve_step.py) belong to the LM stack, not ported yet.
+# Serving: the LM serving steps (batched prefill, decode, cascade early-exit
+# decode, generation) over ``repro_torch.models``; the micro-batching
+# DetectorService over the port's Detector and stream sessions, the
+# multi-tenant fleet scheduler on top of it, and their typed stats.
+from .serve_step import (make_prefill_step, make_decode_step,  # noqa: F401
+                         make_cascade_decode_step, generate)
 from .detector_service import (DetectorService, ServiceConfig,  # noqa: F401
                                Request, DetectionRequest, FrameRequest,
                                StreamSession, PodSpec, SLO_TIERS, GOVERNORS)

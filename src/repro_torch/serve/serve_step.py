@@ -1,0 +1,74 @@
+"""Serving steps: batched prefill + single-token decode (+ greedy/sampled
+generation loop and cascade early-exit serving).
+
+``serve_step`` for the dry-run shapes is the **decode** step: one new
+token against a KV/recurrent cache of the shape's length."""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.early_exit import decode_step_cascade
+
+__all__ = ["make_prefill_step", "make_decode_step", "generate",
+           "make_cascade_decode_step"]
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the last position's float32 logits (the first maximum,
+    as ``jnp.argmax``), as int32."""
+    return torch.argmax(logits[:, -1].float(), -1).to(torch.int32)
+
+
+def make_prefill_step(model):
+    def prefill_step(params, tokens, cache, prefix_embeds=None):
+        return model.prefill(params, tokens, cache,
+                             prefix_embeds=prefix_embeds)
+    return prefill_step
+
+
+def make_decode_step(model, *, sample: bool = False):
+    """``decode_step(params, token, cache, rng=None) -> (next, cache,
+    logits)``; sampling draws from ``rng``, a ``torch.Generator`` on the
+    model's device."""
+    def decode_step(params, token, cache, rng=None):
+        logits, cache = model.decode_step(params, token, cache)
+        if sample:
+            probs = torch.softmax(logits[:, -1].float(), -1)
+            nxt = torch.multinomial(probs, 1, generator=rng)[:, 0].to(
+                torch.int32)
+        else:
+            nxt = _greedy(logits)
+        return nxt, cache, logits
+    return decode_step
+
+
+def make_cascade_decode_step(model, ecfg):
+    """Early-exit (paper-cascade) decode step; returns exit depths too."""
+    def decode_step(params, token, cache):
+        logits, cache, depth = decode_step_cascade(model, params, token,
+                                                   cache, ecfg)
+        return _greedy(logits), cache, depth
+    return decode_step
+
+
+def generate(model, params, prompt_tokens, max_new: int = 32,
+             max_len: int | None = None, prefix_embeds=None,
+             sample: bool = False, seed: int = 0):
+    """Host-loop generation: prefill, then ``max_new - 1`` decode steps.
+    Returns (B, max_new) int32 tokens (the first from the prefill's
+    logits, greedy).  Sampling draws from a ``torch.Generator`` seeded
+    with ``seed`` on the model's device."""
+    B, S = prompt_tokens.shape
+    max_len = max_len or (S + max_new)
+    cache = model.init_cache(B, max_len)
+    decode = make_decode_step(model, sample=sample)
+    logits, cache = make_prefill_step(model)(params, prompt_tokens, cache,
+                                             prefix_embeds)
+    token = _greedy(logits)
+    out = [token]
+    rng = torch.Generator(device=model.device).manual_seed(seed)
+    for _ in range(max_new - 1):
+        token, cache, _ = decode(params, token, cache, rng=rng)
+        out.append(token)
+    return torch.stack(out, 1)

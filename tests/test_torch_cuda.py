@@ -8,9 +8,12 @@ card equal to the port's CPU run, a governed two-pod service flush on
 the card equal to the CPU's rects, shares and modelled joules under the
 same seeded rates, a device-state session flushed by the service's
 background thread, a fleet's degraded sessions equal to lone CPU
-``VideoDetector``s on their stretched configs, and a tiny cascade trained
-on the card equal bit for bit to the CPU's.  Imports only torch, numpy
-and the port, so it runs where jax is not installed:
+``VideoDetector``s on their stretched configs, a tiny cascade trained
+on the card equal bit for bit to the CPU's; and the LM stack: every
+architecture's smoke config (forward, prefill and decode logits), greedy
+``generate`` and the blockwise flash forward on the card equal to the
+CPU's within the reference's tolerances (float32, TF32 off).  Imports
+only torch, numpy and the port, so it runs where jax is not installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -491,3 +494,93 @@ def test_training_on_card_equals_cpu_bit_for_bit(card):
     for f, a in c_casc.numpy().items():
         assert np.array_equal(a, p_casc.numpy()[f]), f
     assert c_info["stages"] == p_info["stages"]
+
+
+# ------------------------------------------------------------- LM stack
+LM_ATOL = 2e-3          # the reference's decode tolerance
+
+
+def lm_pair(arch, card, n_layers=None):
+    """The same smoke model and weights (drawn on the CPU) on the card and
+    on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import tree_map
+    cfg = get_smoke_config(arch)
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
+    cpu = Model(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    return (Model(cfg, card), tree_map(lambda t: t.to(card), params), cpu,
+            params)
+
+
+@pytest.fixture
+def no_tf32(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "qwen3-moe-235b-a22b",
+                                  "recurrentgemma-2b", "stablelm-1.6b",
+                                  "olmo-1b", "qwen2-72b", "llama3-405b",
+                                  "internvl2-1b", "musicgen-medium",
+                                  "mamba2-780m"])
+def test_lm_smoke_archs_on_card_equal_cpu(card, no_tf32, arch):
+    """forward, prefill of 12 tokens and 4 decode steps: card == CPU
+    within atol 2e-3."""
+    gpu, g_params, cpu, c_params = lm_pair(arch, card)
+    cfg = cpu.cfg
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+    kw = {}
+    if cfg.input_mode == "tokens+prefix":
+        kw["prefix_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_prefix_embeds, cfg.d_model)).astype(np.float32))
+    runs = []
+    for m, p, dev in ((gpu, g_params, card), (cpu, c_params, "cpu")):
+        kwd = {k: v.to(dev) for k, v in kw.items()}
+        full, _ = m.forward(p, tokens.to(dev), **kwd)
+        cache = m.init_cache(2, 32)
+        lg, cache = m.prefill(p, tokens[:, :12].to(dev), cache, **kwd)
+        steps = [lg]
+        for t in range(12, 16):
+            lg, cache = m.decode_step(p, tokens[:, t].to(dev), cache)
+            steps.append(lg)
+        runs.append((full.cpu(), torch.cat(steps, 1).cpu()))
+    for got, want in zip(*runs):
+        assert got.device.type == "cpu" and torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=LM_ATOL)
+
+
+@pytest.mark.cuda
+def test_lm_generate_on_card_equals_cpu(card, no_tf32):
+    from repro_torch.serve import generate
+    gpu, g_params, cpu, c_params = lm_pair("olmo-1b", card, n_layers=6)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cpu.cfg.vocab_size, (4, 12)))
+    got = generate(gpu, g_params, prompt.to(card), max_new=8)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), generate(cpu, c_params, prompt, max_new=8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hq,g,causal,window,chunk", [
+    (17, 2, 1, True, None, 32), (50, 6, 2, True, 24, 16),
+    (96, 6, 2, False, None, 32), (300, 4, 2, True, None, 128)])
+def test_lm_flash_forward_on_card_equals_cpu(card, no_tf32, s, hq, g, causal,
+                                             window, chunk):
+    from repro_torch.models.layers import attention_reference, flash_attention
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (2, s, h, 16)).astype(np.float32)) for h in (hq, hq // g, hq // g))
+    got = flash_attention(q.to(card), k.to(card), v.to(card), causal, window,
+                          chunk, chunk)
+    tol = dict(rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(
+        got.cpu().numpy(), flash_attention(q, k, v, causal, window, chunk,
+                                           chunk).numpy(), **tol)
+    np.testing.assert_allclose(
+        got.cpu().numpy(), attention_reference(q, k, v, causal,
+                                               window).numpy(), **tol)
