@@ -113,6 +113,19 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
    at (1, 4096, 16, 128) bf16, timed beside
    ``scaled_dot_product_attention`` (``check_lm``).  The LM stack has no
    hand kernel: this phase launches none of S, A, B, C, D.
+11. LM training: ``repro_torch.train`` at ``olmo-1b``'s full width (bf16
+   params, float32 moments, remat ``"block"``, weights from a seed),
+   ``LM_TRAIN_STEPS`` steps of 8 x 2048 tokens in microbatches of 4:
+   finite losses, grad norms, ms per step, tokens per second, model-FLOP
+   utilisation, peak device memory beside the same step's with remat off;
+   a float32 2-layer copy on the card and on the CPU (1 x 1100 tokens,
+   TF32 off): loss and every gradient leaf within ``LM_TRAIN_CHECK``'s
+   tolerances, then ``adamw_update`` fed the CPU's gradients on both;
+   a restart (2 steps, checkpoint, restore, 2 steps) equal to 4 straight
+   steps; the flash backward at (1, 4096, 16, 128) bf16 against float32
+   autograd through the oracle, timed beside the backward of
+   ``scaled_dot_product_attention`` and its bound (``check_lm_train``).
+   No hand kernel runs: this phase launches none of S, A, B, C, D.
 
 Every path driven on the card runs with the launch counts set to 0 just
 before it and read just after: each must have launched the kernels of its
@@ -126,14 +139,16 @@ background flusher's run: S, A, C; fleet, the fleet's frames: S, A on
 keyframes, C; trained, the trained cascade's flush: S, A, C) and none it
 must not (no engine, service or fleet path launches D; no stream,
 service or fleet path B; an incremental frame no dense kernel; lm, the
-whole LM phase, none of the five).
+whole LM phase, none of the five; lm_train, the whole training phase,
+none of the five).
 
 Device times come from ``profiled_ms``, which divides a trace's device
 time by the launches the trace holds, not by the calls requested.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"stream": {...}}``, ``{"service": {...}}``, ``{"fleet":
-{...}}``, ``{"training": {...}}`` and ``{"lm": {...}}`` line each, and
+{...}}``, ``{"training": {...}}``, ``{"lm": {...}}`` and ``{"lm_train":
+{...}}`` line each, and
 last ``{"ok": true,
 "device": {...}}``; it exits non-zero, with no result line, when there is
 no CUDA device or no checkout around it.
@@ -209,6 +224,28 @@ LM_ATTN_SHAPE = (1, 4096, 16, 128)
 # deviations per entry (the CPU's largest at (1, 4096, 2, 128) was 3.1)
 LM_ATTN_SIGMAS = 6.0
 BF16_OPS = 989e12    # H100 SXM dense bf16 tensor-core rate (data sheet)
+# phase 11: LM training at olmo-1b's full width: 8 sequences of OLMo's
+# 2048-token context per step in microbatches of 4 (16,384 tokens); peak
+# lr 4e-4 and 2000 warm-up steps as OLMo-1B (arXiv:2402.00838), AdamW's
+# betas 0.9 / 0.95, weight decay 0.1 and clip 1.0 the port's defaults (the
+# schedule's total length never matters inside the warm-up); the timed
+# steps are the median of steps 2..6
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO = 8, 2048, 4
+LM_TRAIN_STEPS = 6
+LM_TRAIN_OPT = dict(peak_lr=4e-4, warmup=2000)
+# the float32 card-vs-CPU and restart checks: n_layers cut 16 -> 2 (the
+# CPU side near ten seconds), 1 x 1100 tokens (past both flash chunks);
+# gradient leaves within grad_rel of the leaf's largest |g|, the loss at
+# loss_rtol, AdamW's outputs within adamw_rtol (and that share of the
+# leaf's largest |value|: the card's and the CPU's global norms are sums
+# in another order)
+LM_TRAIN_CHECK = dict(n_layers=2, batch=1, seq=1100, grad_rel=1e-4,
+                      loss_rtol=1e-5, adamw_rtol=1e-6)
+# the flash backward yardstick: each gradient entry within one bf16 ulp of
+# the float32 oracle's plus this share of the tensor's largest |value|
+# (the roundings of p and ds to bf16 before their products, summed over
+# up to 4096 keys or queries, exceed one ulp of a small entry)
+LM_BWD_ATOL_SHARE = 2 ** -6
 
 
 def fail(msg: str) -> int:
@@ -453,6 +490,31 @@ def lm_workload(torch, device):
     prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(device)
     return model, params, prompts
+
+
+def lm_train_workload(torch, device, remat: str = "block"):
+    """Phase 11's training workload: ``LM_ARCH`` at full width (its remat
+    set to ``remat``), a ``TrainState`` drawn on ``device`` from seed
+    ``SEED``, the ``SyntheticTokens`` pipeline of ``LM_TRAIN_BATCH`` x
+    ``LM_TRAIN_SEQ`` tokens and the train step (microbatch
+    ``LM_TRAIN_MICRO``, ``LM_TRAIN_OPT``).  Returns ``(model, state,
+    batch_at, step)``; ``batch_at(i)`` is step i's batch on the device."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import Model
+    from repro_torch.train import init_train_state, make_train_step
+    model = Model(get_config(LM_ARCH).with_(remat=remat), device)
+    state = init_train_state(
+        model, torch.Generator(device=device).manual_seed(SEED))
+    pipe = SyntheticTokens(model.cfg.vocab_size, LM_TRAIN_BATCH,
+                           LM_TRAIN_SEQ, seed=SEED)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in pipe(i).items()}
+
+    return model, state, batch_at, make_train_step(
+        model, microbatch=LM_TRAIN_MICRO, **LM_TRAIN_OPT)
 
 
 def pipelined(vd, frames) -> list:
@@ -1743,6 +1805,297 @@ def check_lm(torch, on_path, smi: str):
 
 
 
+def check_lm_train(torch, on_path, smi: str):
+    """Phase 11.  Returns ``(report, error)``; ``error`` is '' when every
+    check held.
+
+    LM training through ``repro_torch.train`` at ``LM_ARCH``'s full width
+    (``lm_train_workload``: bf16 params, float32 moments, remat
+    ``"block"``, weights drawn on the card from seed ``SEED``):
+
+    - ``LM_TRAIN_STEPS`` steps of ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ``
+      tokens in microbatches of ``LM_TRAIN_MICRO``: every loss and grad
+      norm finite; ms per step (CUDA events around each step; the median
+      of steps 2..6), tokens per second, model-FLOP utilisation
+      (6 N tokens per step over the step time, at ``BF16_OPS``), the peak
+      of allocated device memory over the last step, and over one step of
+      the same state and batch with remat off;
+    - card vs CPU: a float32 copy of the config cut to
+      ``LM_TRAIN_CHECK['n_layers']`` layers, the same weights on both, one
+      ``LM_TRAIN_CHECK['seq']``-token sequence, TF32 off: the loss within
+      ``loss_rtol`` and every gradient leaf within ``grad_rel`` of its
+      largest |g|; then ``adamw_update`` on both fed the CPU's gradients
+      (the first AdamW step is about lr sign(g), so params updated with
+      each side's own gradients would test the sign of near-zero
+      gradients): params and moments within ``adamw_rtol``;
+    - restart, on that float32 model: 4 steps straight equal 2 steps,
+      ``save_checkpoint`` into a temporary directory, ``restore_checkpoint``
+      into a fresh state and 2 more, bit for bit;
+    - the flash backward at ``LM_ATTN_SHAPE`` bf16 (causal, the config's
+      chunks) against float32 autograd through ``attention_reference``:
+      each of dq, dk, dv within one bf16 ulp of the oracle's entry plus
+      ``LM_BWD_ATOL_SHARE`` of the oracle's largest |value|; the port's
+      backward timed beside the backward of
+      ``scaled_dot_product_attention`` (printed only; never on the path)
+      and its bound at the bf16 tensor rate.
+
+    No hand kernel runs on this path: the launch counts of S, A, B, C and
+    D stay 0."""
+    import shutil
+    import statistics
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.layers import (_flash_bwd, _flash_fwd,
+                                           attention_reference)
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.train_step import batch_grads
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    cfg = get_config(LM_ARCH)
+    out: dict = {"card": smi, "arch": LM_ARCH, "dtype": cfg.param_dtype,
+                 "remat": cfg.remat, "batch": LM_TRAIN_BATCH,
+                 "seq": LM_TRAIN_SEQ, "microbatch": LM_TRAIN_MICRO,
+                 "steps": LM_TRAIN_STEPS, "opt": LM_TRAIN_OPT}
+
+    def train():
+        out["memory_allocated_before"] = torch.cuda.memory_allocated()
+        model, state, batch_at, step = lm_train_workload(torch, dev)
+        n = sum(t.numel() for t in tree_leaves(state.params))
+        out["params"] = n
+        marks, metrics = [], []
+        for i in range(LM_TRAIN_STEPS):
+            batch = batch_at(i)
+            if i == LM_TRAIN_STEPS - 1:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, m = step(state, batch)
+            ev[1].record()
+            marks.append(ev)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        ms = [a.elapsed_time(b) for a, b in marks]
+        tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+        out["ms_per_step_runs"] = ms
+        out["ms_per_step"] = statistics.median(ms[1:])
+        out["tokens_per_s"] = tokens * 1e3 / out["ms_per_step"]
+        out["model_flops_per_step"] = 6 * n * tokens
+        out["mfu"] = (out["model_flops_per_step"] / (out["ms_per_step"]
+                                                     * 1e-3) / BF16_OPS)
+        out["bf16_peak_flops"] = BF16_OPS
+        out["loss"] = [float(m["loss"]) for m in metrics]
+        out["grad_norm"] = [float(m["grad_norm"]) for m in metrics]
+        out["tokens_per_batch"] = [float(m["tokens"]) for m in metrics]
+        # the same step with remat off: its peak beside the remat step's
+        off = Model(model.cfg.with_(remat="none"), dev)
+        step_off = make_train_step(off, microbatch=LM_TRAIN_MICRO,
+                                   **LM_TRAIN_OPT)
+        batch = batch_at(LM_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, m_off = step_off(state, batch)
+        torch.cuda.synchronize()
+        out["max_memory_allocated_no_remat"] = torch.cuda.max_memory_allocated()
+        out["loss_no_remat_step"] = float(m_off["loss"])
+        print(f"lm_train {LM_ARCH} bf16 ({n} parameters), {LM_TRAIN_BATCH} "
+              f"x {LM_TRAIN_SEQ} tokens a step in microbatches of "
+              f"{LM_TRAIN_MICRO}, remat {model.cfg.remat}: "
+              f"{out['ms_per_step']:.1f} ms per step (steps "
+              f"{[round(x, 1) for x in ms]}), "
+              f"{out['tokens_per_s']:.0f} tokens/s, MFU "
+              f"{out['mfu']:.2%} of {BF16_OPS / 1e12:.0f} TFLOP/s bf16; "
+              f"peak {out['max_memory_allocated'] / 2**30:.2f} GiB, with "
+              f"remat off {out['max_memory_allocated_no_remat'] / 2**30:.2f}"
+              f" GiB (earlier phases hold "
+              f"{out['memory_allocated_before'] / 2**30:.2f}); losses "
+              f"{[round(x, 4) for x in out['loss']]}, grad norms "
+              f"{[round(x, 4) for x in out['grad_norm']]} [{smi}]")
+        bad = [x for x in out["loss"] + out["grad_norm"]
+               + [out["loss_no_remat_step"]] if not np.isfinite(x)]
+        if bad:
+            return f"training: non-finite losses or grad norms {bad}"
+        if out["tokens_per_batch"] != [float(LM_TRAIN_BATCH
+                                             * LM_TRAIN_SEQ)] * LM_TRAIN_STEPS:
+            return f"training: token counts {out['tokens_per_batch']}"
+        return ""
+
+    ck = LM_TRAIN_CHECK
+    cfg32 = cfg.with_(n_layers=ck["n_layers"], param_dtype="float32",
+                      compute_dtype="float32")
+
+    def card_vs_cpu():
+        gpu, cpu = Model(cfg32, dev), Model(cfg32, "cpu")
+        p_gpu = gpu.init(torch.Generator(device=dev).manual_seed(SEED))
+        p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+        tokens = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+            0, cfg.vocab_size, (ck["batch"], ck["seq"] + 1)).astype(
+                np.int32))
+        runs, seconds = [], []
+        for m, p in ((gpu, p_gpu), (cpu, p_cpu)):
+            t0 = time.perf_counter()
+            g, met = batch_grads(m, p, {"tokens": tokens.to(m.device)})
+            runs.append((tree_map(lambda t: t.cpu(), g), float(met["loss"])))
+            seconds.append(time.perf_counter() - t0)
+        (g_gpu, l_gpu), (g_cpu, l_cpu) = runs
+        rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                  for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu)))
+        finite = all(bool(torch.isfinite(a).all())
+                     for a in tree_leaves(g_gpu))
+        # AdamW on both sides, fed the CPU's gradients
+        upd = []
+        for p, dv in ((p_gpu, dev), (p_cpu, torch.device("cpu"))):
+            g = tree_map(lambda t: t.to(dv), g_cpu)
+            new_p, opt, _ = adamw_update(p, g, adamw_init(p), 4e-4)
+            upd.append([t.cpu() for t in tree_leaves([new_p, opt.m,
+                                                      opt.v])])
+        a_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(*upd))
+        a_ok = all(bool(((a - b).abs() <= ck["adamw_rtol"] * (
+            b.abs() + b.abs().max())).all()) for a, b in zip(*upd))
+        out["card_vs_cpu"] = {
+            "dtype": "float32", "n_layers": ck["n_layers"],
+            "tokens": ck["seq"], "loss": [l_gpu, l_cpu],
+            "loss_rel_err": abs(l_gpu - l_cpu) / abs(l_cpu),
+            "grad_max_rel_err": rel, "grad_rel_allowed": ck["grad_rel"],
+            "adamw_max_rel_err": a_rel, "adamw_rtol": ck["adamw_rtol"],
+            "card_seconds": seconds[0], "cpu_seconds": seconds[1]}
+        c = out["card_vs_cpu"]
+        print(f"lm_train card vs CPU (float32, TF32 off, {ck['n_layers']} "
+              f"layers, {ck['seq']} tokens): loss {l_gpu:.6f} vs "
+              f"{l_cpu:.6f} (rel err {c['loss_rel_err']:.3g}, allowed "
+              f"{ck['loss_rtol']}); gradient leaves within "
+              f"{rel:.3g} of their largest |g| (allowed {ck['grad_rel']}); "
+              f"adamw_update on the CPU's gradients within {a_rel:.3g} of "
+              f"the leaf's largest |value| (rtol {ck['adamw_rtol']}); card "
+              f"{seconds[0]:.1f} s, CPU {seconds[1]:.1f} s [{smi}]")
+        if not (finite and c["loss_rel_err"] <= ck["loss_rtol"]
+                and rel <= ck["grad_rel"]):
+            return "card vs CPU: loss or gradients differ"
+        if not a_ok:
+            return "card vs CPU: adamw_update differs"
+        return ""
+
+    def restart():
+        model = Model(cfg32, dev)
+        step = make_train_step(model, peak_lr=4e-4, warmup=0)
+        tokens = np.random.default_rng(SEED + 3).integers(
+            0, cfg.vocab_size, (4, ck["batch"], ck["seq"] + 1)).astype(
+                np.int32)
+        batches = [{"tokens": torch.from_numpy(t).to(dev)} for t in tokens]
+
+        def fresh():
+            return init_train_state(
+                model, torch.Generator(device=dev).manual_seed(SEED))
+
+        straight = fresh()
+        for b in batches:
+            straight, _ = step(straight, b)
+        resumed = fresh()
+        for b in batches[:2]:
+            resumed, _ = step(resumed, b)
+        d = tempfile.mkdtemp(prefix="lm_train_ckpt_")
+        try:
+            save_checkpoint(d, 2, resumed)
+            del resumed
+            resumed, at, _ = restore_checkpoint(d, fresh(), device=dev)
+        finally:
+            shutil.rmtree(d)
+        for b in batches[2:]:
+            resumed, _ = step(resumed, b)
+        a, b = tree_leaves(list(straight)), tree_leaves(list(resumed))
+        n_diff = sum(int((x != y).sum()) for x, y in zip(a, b))
+        out["restart"] = {"restored_step": at, "steps": 4,
+                          "leaves": len(a), "entries_differ": n_diff}
+        print(f"lm_train restart: 2 steps, checkpoint, restore (step {at})"
+              f", 2 steps vs 4 straight: {n_diff} of "
+              f"{sum(x.numel() for x in a)} entries differ over {len(a)} "
+              f"leaves [{smi}]")
+        if at != 2 or n_diff:
+            return "restart: the resumed run differs from the straight one"
+        return ""
+
+    def backward():
+        B, S, Hh, D = LM_ATTN_SHAPE
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        q, k, v, do = (torch.randn(LM_ATTN_SHAPE, generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        args = (True, None, cfg.attn_chunk_q, cfg.attn_chunk_kv, None)
+        o, lse = _flash_fwd(q, k, v, *args)
+        got = _flash_bwd(q, k, v, o, lse, do, *args)
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        attention_reference(*leaves, True).backward(do.float())
+        worst, rel = 0.0, []
+        for g, w in zip(got, (t.grad for t in leaves)):
+            err = (g.float() - w).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                w.abs().clamp_min(1e-30))) - 7)
+            allowed = ulp + LM_BWD_ATOL_SHARE * w.abs().max()
+            worst = max(worst, float((err / allowed).max()))
+            rel.append(float(err.max() / w.abs().max()))
+        del leaves
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        o_sdpa = sdpa(qt, kt, vt, is_causal=True)
+        do_t = do.transpose(1, 2)
+        pairs = S * (S + 1) / 2
+        # five products (s, dp, dv, dk, dq) over the causal half
+        flops = 5 * 2 * B * Hh * pairs * D
+        bytes_moved = (8 * q.numel() * 2          # read q k v o dO, write 3
+                       + lse.numel() * 4)
+        b_ms = max(bytes_moved / MEM_BPS, flops / BF16_OPS) * 1e3
+        out["flash_backward"] = {
+            "shape": list(LM_ATTN_SHAPE), "dtype": "bfloat16",
+            "chunks": list(args[2:4]),
+            "max_err_over_allowed": worst,
+            "atol_share": LM_BWD_ATOL_SHARE,
+            "max_err_rel_to_max": dict(zip(("dq", "dk", "dv"), rel)),
+            "ms": cuda_ms(torch, lambda: _flash_bwd(q, k, v, o, lse, do,
+                                                    *args), 3),
+            "sdpa_backward_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                o_sdpa, (qt, kt, vt), do_t, retain_graph=True), 10),
+            "bound_ms": b_ms, "bound_by": "operations (bf16 tensor rate)"
+            if flops / BF16_OPS >= bytes_moved / MEM_BPS else "bytes"}
+        f = out["flash_backward"]
+        print(f"lm_train flash backward {LM_ATTN_SHAPE} bf16 causal, chunks "
+              f"{tuple(args[2:4])}: {f['ms']:.3f} ms; dq/dk/dv vs float32 "
+              f"autograd through the oracle: largest error "
+              f"{worst:.3f} of one bf16 ulp + {LM_BWD_ATOL_SHARE} x max|g| "
+              f"(max err / max|g|: "
+              f"{', '.join(f'{r:.3g}' for r in rel)}); sdpa backward "
+              f"{f['sdpa_backward_ms']:.3f} ms, bound {b_ms:.4f} ms "
+              f"({f['bound_by']}) [{smi}]")
+        if not worst <= 1.0:
+            return (f"flash backward: an entry {worst:.3f} of its allowance "
+                    f"from the oracle")
+        return ""
+
+    def phase():
+        for part in (train, card_vs_cpu, restart, backward):
+            err = part()
+            torch.cuda.empty_cache()
+            if err:
+                return err
+        return ""
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        err, path_err = on_path("lm_train", phase, (),
+                                tuple(KERNEL_ENTRIES.values()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, err or path_err
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -2302,6 +2655,13 @@ def main() -> int:
     print(f"LM serving phase: {lm['seconds']:.1f} s")
     report["lm"] = lm
 
+    # --------------------------------------------------- 11. LM training
+    lm_train, err = check_lm_train(torch, on_path, smi)
+    if err:
+        return fail(f"LM training: {err}")
+    print(f"LM training phase: {lm_train['seconds']:.1f} s")
+    report["lm_train"] = lm_train
+
     # each kernel's launches are those of the first path that runs it: S, A
     # and C on the fused flush, B on the split flush, D on the kernel API
     launch_path = {split_b: "split", inv_d_k: "kernel_api"}
@@ -2320,6 +2680,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"training": training}))
     print(json.dumps({"lm": lm}))
+    print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

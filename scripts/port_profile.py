@@ -3,7 +3,7 @@
 
     python3 scripts/port_profile.py [--flushes 3] [--head fused|split]
                                     [--calibrated] [--stream [FRAMES]]
-                                    [--lm [STEPS]]
+                                    [--lm [STEPS]] [--train [STEPS]]
 
 Builds the port's kernels, warms ``Detector.detect_batch`` (packed
 strategy) on the main path's workload as ``chip_smoke.main_path_workload``
@@ -43,6 +43,14 @@ the same prefill and decode steps untraced (host clock around each call,
 synchronised; the median): a process that has run ``torch.profiler``
 may launch more slowly afterwards.  Writes
 ``chiprun_out/port_profile_lm.json``.
+
+``--train`` instead traces LM training as ``chip_smoke.py``'s phase 11
+runs it (``chip_smoke.lm_train_workload``: ``olmo-1b`` at full width,
+bf16 params, float32 moments, remat ``"block"``, 8 x 2048 tokens a step
+in microbatches of 4): after two warm-up steps, ``STEPS`` (default 1)
+train steps untraced (host clock, synchronised), then traced: host wall
+time, device time by operation, device operations and the idle share.
+Writes ``chiprun_out/port_profile_train.json``.
 Needs a CUDA card; fails without one.
 """
 
@@ -68,6 +76,8 @@ def main() -> int:
                     metavar="FRAMES")
     ap.add_argument("--lm", type=int, nargs="?", const=8, default=0,
                     metavar="STEPS")
+    ap.add_argument("--train", type=int, nargs="?", const=1, default=0,
+                    metavar="STEPS")
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -86,6 +96,8 @@ def main() -> int:
                          text=True, timeout=60, check=True).stdout.strip()
     if args.lm:
         return profile_lm(torch, smi, args.lm)
+    if args.train:
+        return profile_train(torch, smi, args.train)
     native.build_all()
     if args.stream:
         return profile_stream(torch, smi, args.stream)
@@ -323,6 +335,89 @@ def profile_lm(torch, smi: str, n_steps: int) -> int:
     dest.mkdir(exist_ok=True)
     (dest / "port_profile_lm.json").write_text(json.dumps(out, indent=1))
     return 0
+
+
+def profile_train(torch, smi: str, n_steps: int) -> int:
+    """``--train``: trace ``n_steps`` train steps of phase 11's LM
+    training."""
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import (LM_ARCH, LM_TRAIN_BATCH, LM_TRAIN_MICRO,
+                            LM_TRAIN_SEQ, lm_train_workload)
+    model, state, batch_at, step = lm_train_workload(torch, "cuda")
+    for i in range(2):                                   # warm-up
+        state, _ = step(state, batch_at(i))
+    batches = [batch_at(2 + i) for i in range(n_steps)]
+    torch.cuda.synchronize()
+    walls = []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    events = device_events(prof)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 \
+        / n_steps
+    out = {"card": smi, "arch": LM_ARCH, "batch": LM_TRAIN_BATCH,
+           "seq": LM_TRAIN_SEQ, "microbatch": LM_TRAIN_MICRO,
+           "remat": model.cfg.remat, "steps": n_steps,
+           "untraced_wall_ms": walls, "wall_ms": wall_ms,
+           "device_ms": device_ms,
+           "device_ops": sum(e.count for e in events) / n_steps,
+           "idle_share": 1.0 - device_ms / wall_ms,
+           "by_category": by_category(events, n_steps),
+           "top": [{"name": e.key, "calls": e.count / n_steps,
+                    "device_ms": e.self_device_time_total / 1e3 / n_steps}
+                   for e in events[:25]]}
+    print(f"train step ({LM_ARCH}, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, "
+          f"microbatch {LM_TRAIN_MICRO}, remat {model.cfg.remat}): wall "
+          f"{wall_ms:.1f} ms (untraced {[round(w, 1) for w in walls]}), "
+          f"device {device_ms:.1f} ms, {out['device_ops']:.0f} device "
+          f"operations, idle share {out['idle_share']:.3f} [{smi}]")
+    for name, c in out["by_category"].items():
+        print(f"  {name}: {c['device_ms']:.1f} ms in {c['calls']:.0f} "
+              f"calls")
+    for t in out["top"]:
+        print(f"  {t['device_ms']:9.3f} ms  {t['calls']:7.1f} calls  "
+              f"{t['name'][:90]}")
+    if not events:
+        print("port_profile: the trace holds no device time",
+              file=sys.stderr)
+        return 1
+    dest = ROOT / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    (dest / "port_profile_train.json").write_text(json.dumps(out, indent=1))
+    return 0
+
+
+# device operations by kernel name, first match wins: cuBLAS / CUTLASS
+# float32 GEMMs (SIMT ``sgemm``, ``f32f32`` xmma), the Hopper ``nvjet``
+# GEMMs (bf16 here: float32 GEMMs take the SIMT kernels with TF32 off),
+# copies and dtype casts, reductions, other elementwise kernels
+CATEGORIES = (("float32 GEMM", ("sgemm", "f32f32_f32")),
+              ("bf16 GEMM", ("nvjet", "gemm")),
+              ("copies and casts", ("copy",)),
+              ("reductions", ("reduce_kernel",)),
+              ("elementwise", ("elementwise",)))
+
+
+def by_category(events, n: int) -> dict:
+    """Device ms and calls per ``CATEGORIES`` entry (and "other"), each
+    over ``n`` steps."""
+    out = {name: {"device_ms": 0.0, "calls": 0.0}
+           for name in [c[0] for c in CATEGORIES] + ["other"]}
+    for e in events:
+        name = next((c for c, keys in CATEGORIES
+                     if any(k in e.key for k in keys)), "other")
+        out[name]["device_ms"] += e.self_device_time_total / 1e3 / n
+        out[name]["calls"] += e.count / n
+    return out
 
 
 def device_events(prof) -> list:

@@ -1,5 +1,5 @@
 # LM substrate for the assigned architectures, on one device:
-#   layers      - norms, RoPE, blockwise flash attention (forward), MLPs
+#   layers      - norms, RoPE, blockwise flash attention (and backward), MLPs
 #   attn        - GQA attention with a KV / sliding-window ring cache
 #   mla         - DeepSeek-V2 multi-head latent attention (+ absorbed decode)
 #   moe         - top-k routed experts (capacity dispatch)

@@ -12,10 +12,12 @@ the value dtype before P·V; norms and RoPE compute in float32 and cast
 back.  A float32-accumulated product of low-precision operands is taken
 as the float32 product of the operands upcast (exact for bf16 inputs).
 
-``flash_attention`` is the forward of the reference's blockwise jnp
-attention (online softmax over kv blocks of ``chunk_kv``, q blocks of
-``chunk_q``, inputs padded to chunk multiples); it never materialises
-(S x Sk).  Its backward comes with the training slice.
+``flash_attention`` is the reference's blockwise jnp attention (online
+softmax over kv blocks of ``chunk_kv``, q blocks of ``chunk_q``, inputs
+padded to chunk multiples) as a ``torch.autograd.Function``: the forward
+keeps (q, k, v, o, lse) and the backward recomputes the probabilities
+block by block (the reference's ``custom_vjp``).  Neither direction
+materialises (S x Sk).
 """
 
 from __future__ import annotations
@@ -154,9 +156,10 @@ def _blockwise_fwd(q, k, v, q0, S, Sk, causal, window, chunk_kv, scale):
     """Online softmax over kv blocks for one q block.
 
     q: (B, Tq, Hk, G, D); k/v: (B, Skp, Hk, D[v]).  Returns o (B, Hk, G,
-    Tq, Dv) float32, normalised.  A kv block that the causal or window
-    mask hides from every row of the block is skipped: in the reference it
-    leaves (o, m, l) bit for bit as they were (alpha = 1, p = 0).
+    Tq, Dv) float32, normalised, and lse (B, Hk, G, Tq) float32.  A kv
+    block that the causal or window mask hides from every row of the block
+    is skipped: in the reference it leaves (o, m, l) bit for bit as they
+    were (alpha = 1, p = 0).
     """
     B, Tq, Hk, G, D = q.shape
     Dv = v.shape[-1]
@@ -166,9 +169,7 @@ def _blockwise_fwd(q, k, v, q0, S, Sk, causal, window, chunk_kv, scale):
     l = torch.zeros((B, Hk, G, Tq), dtype=torch.float32, device=dev)
     qf = q.float()
     for kv0 in range(0, k.shape[1], chunk_kv):
-        if causal and kv0 > q0 + Tq - 1:
-            continue
-        if window is not None and q0 - (kv0 + chunk_kv - 1) >= window:
+        if _hidden(q0, Tq, kv0, chunk_kv, causal, window):
             continue
         ks = k[:, kv0:kv0 + chunk_kv].float()
         vs = v[:, kv0:kv0 + chunk_kv]
@@ -183,37 +184,138 @@ def _blockwise_fwd(q, k, v, q0, S, Sk, causal, window, chunk_kv, scale):
         pv = mm32(p.to(v.dtype), vs, "bhgqk,bkhd->bhgqd")
         o = o * alpha[..., None] + pv
         m = m_new
-    return o / torch.clamp(l, min=1e-30)[..., None]
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return o / torch.clamp(l, min=1e-30)[..., None], lse
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
-                    chunk_q: int = 512, chunk_kv: int = 1024,
-                    softmax_scale: float | None = None) -> torch.Tensor:
-    """Memory-efficient multi-head attention with GQA (forward).
+def _hidden(q0, Tq, kv0, Tk, causal, window) -> bool:
+    """True when the causal or window mask hides the whole (q block, kv
+    block) pair: its probabilities, and so its share of every output and
+    gradient, are exactly zero."""
+    if causal and kv0 > q0 + Tq - 1:
+        return True
+    return window is not None and q0 - (kv0 + Tk - 1) >= window
 
-    q: (B, S, Hq, D); k, v: (B, Sk, Hkv, D[v]) with Hq % Hkv == 0 and
-    q/k positions aligned at 0 (prefill).  The live score block is (B, Hq,
-    chunk_q, chunk_kv) float32.
+
+def _chunks(S, Sk, D, chunk_q, chunk_kv, softmax_scale):
+    """(scale, cq, ckv, Sp, Skp): the blocks and the padded lengths."""
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    cq = min(chunk_q, S)
+    ckv = min(chunk_kv, Sk)
+    return scale, cq, ckv, -(-S // cq) * cq, -(-Sk // ckv) * ckv
+
+
+def _pad_seq(x, n):
+    """x (B, L, ...) zero-padded to length L + n along axis 1."""
+    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, n))
+
+
+def _flash_fwd(q, k, v, causal, window, chunk_q, chunk_kv, softmax_scale):
+    """(o (B, S, Hq, Dv) in q's dtype, lse (B, S, Hkv, G) float32)."""
+    B, S, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = Hq // Hkv
+    scale, cq, ckv, Sp, Skp = _chunks(S, Sk, D, chunk_q, chunk_kv,
+                                      softmax_scale)
+    qp = _pad_seq(q, Sp - S)
+    kp = _pad_seq(k, Skp - Sk)
+    vp = _pad_seq(v, Skp - Sk)
+    qg = qp.reshape(B, Sp // cq, cq, Hkv, G, D)
+    o, lse = zip(*(_blockwise_fwd(qg[:, i], kp, vp, i * cq, S, Sk, causal,
+                                  window, ckv, scale)
+                   for i in range(Sp // cq)))
+    # o: (B, nq, Hkv, G, cq, Dv) -> (B, Sp, Hq, Dv); lse likewise w/o Dv
+    o = torch.stack(o, 1).permute(0, 1, 4, 2, 3, 5).reshape(
+        B, Sp, Hq, Dv)[:, :S]
+    lse = torch.stack(lse, 1).permute(0, 1, 4, 2, 3).reshape(
+        B, Sp, Hkv, G)[:, :S]
+    return o.to(q.dtype), lse
+
+
+def _flash_bwd(q, k, v, o, lse, do, causal, window, chunk_q, chunk_kv,
+               softmax_scale):
+    """The reference's ``_flash_bwd``: (dq, dk, dv) in the inputs' dtypes.
+
+    Blockwise over (kv block, q block), as the forward: ``p = exp(s -
+    lse)`` under the mask, ``delta = rowsum(dO * O)`` and ``ds = p (dp -
+    delta) scale`` in float32; ``p`` and ``ds`` are rounded to the operand
+    dtype before their products, which accumulate in float32.  A pair the
+    mask hides entirely is skipped (its share is exactly zero).
     """
     B, S, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     G = Hq // Hkv
-    scale = softmax_scale if softmax_scale is not None else D ** -0.5
-    cq = min(chunk_q, S)
-    ckv = min(chunk_kv, Sk)
-    Sp = -(-S // cq) * cq
-    Skp = -(-Sk // ckv) * ckv
-    qp = F.pad(q, (0, 0, 0, 0, 0, Sp - S))
-    kp = F.pad(k, (0, 0, 0, 0, 0, Skp - Sk))
-    vp = F.pad(v, (0, 0, 0, 0, 0, Skp - Sk))
-    qg = qp.reshape(B, Sp // cq, cq, Hkv, G, D)
-    o = torch.stack([_blockwise_fwd(qg[:, i], kp, vp, i * cq, S, Sk, causal,
-                                    window, ckv, scale)
-                     for i in range(Sp // cq)], 1)
-    # o: (B, nq, Hkv, G, cq, Dv) -> (B, Sp, Hq, Dv)
-    o = o.permute(0, 1, 4, 2, 3, 5).reshape(B, Sp, Hq, Dv)[:, :S]
-    return o.to(q.dtype)
+    scale, cq, ckv, Sp, Skp = _chunks(S, Sk, D, chunk_q, chunk_kv,
+                                      softmax_scale)
+    qp = _pad_seq(q, Sp - S).reshape(B, Sp, Hkv, G, D)
+    dop = _pad_seq(do, Sp - S).reshape(B, Sp, Hkv, G, Dv)
+    op = _pad_seq(o, Sp - S).reshape(B, Sp, Hkv, G, Dv)
+    kp, vp = _pad_seq(k, Skp - Sk), _pad_seq(v, Skp - Sk)
+    # per query, (B, Hkv, G, Sp) float32
+    lsep = _pad_seq(lse, Sp - S).permute(0, 2, 3, 1)
+    delta = torch.einsum("bshgd,bshgd->bhgs", dop.float(), op.float())
+    dq = torch.zeros((B, Sp, Hkv, G, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Skp, Hkv, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, Skp, Hkv, Dv), dtype=torch.float32, device=q.device)
+    for kv0 in range(0, Skp, ckv):
+        ks, vs = kp[:, kv0:kv0 + ckv], vp[:, kv0:kv0 + ckv]
+        for q0 in range(0, Sp, cq):
+            if _hidden(q0, cq, kv0, ckv, causal, window):
+                continue
+            qs, dos = qp[:, q0:q0 + cq], dop[:, q0:q0 + cq]
+            s = mm32(qs, ks, "bqhgd,bkhd->bhgqk") * scale
+            mask = _mask_block(q0, kv0, cq, ckv, S, Sk, causal, window,
+                               q.device)
+            s = torch.where(mask, s, NEG_INF)
+            p = torch.where(mask, torch.exp(
+                s - lsep[..., q0:q0 + cq, None]), 0.0)
+            dp = mm32(dos, vs, "bqhgd,bkhd->bhgqk")
+            ds = p * (dp - delta[..., q0:q0 + cq, None]) * scale
+            dv[:, kv0:kv0 + ckv] += mm32(p.to(do.dtype), dos,
+                                         "bhgqk,bqhgd->bkhd")
+            dk[:, kv0:kv0 + ckv] += mm32(ds.to(q.dtype), qs,
+                                         "bhgqk,bqhgd->bkhd")
+            dq[:, q0:q0 + cq] += mm32(ds.to(k.dtype), ks,
+                                      "bhgqk,bkhd->bqhgd")
+    return (dq.reshape(B, Sp, Hq, D)[:, :S].to(q.dtype),
+            dk[:, :Sk].to(k.dtype), dv[:, :Sk].to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The forward and its residuals (q, k, v, o, lse); the backward
+    through ``_flash_bwd``.  The five trailing arguments take no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk_q, chunk_kv,
+                softmax_scale):
+        o, lse = _flash_fwd(q, k, v, causal, window, chunk_q, chunk_kv,
+                            softmax_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, chunk_q, chunk_kv, softmax_scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
+                    chunk_q: int = 512, chunk_kv: int = 1024,
+                    softmax_scale: float | None = None) -> torch.Tensor:
+    """Memory-efficient multi-head attention with GQA, differentiable in
+    q, k and v.
+
+    q: (B, S, Hq, D); k, v: (B, Sk, Hkv, D[v]) with Hq % Hkv == 0 and
+    q/k positions aligned at 0 (training and prefill).  The live score
+    block is (B, Hq, chunk_q, chunk_kv) float32.
+    """
+    return _Flash.apply(q, k, v, causal, window, chunk_q, chunk_kv,
+                        softmax_scale)
 
 
 def attention_reference(q, k, v, causal: bool = True,

@@ -10,7 +10,9 @@ One ``Model`` covers all ten assigned architectures, as the reference's:
   reference's layout (``params_from_reference`` carries its pytree over
   as is); the walk takes group ``i``'s views in a loop.  Caches are
   listed per group;
-- modes: ``forward`` (logits), ``prefill`` (last logits + cache),
+- modes: ``forward`` (logits; the train-mode forward, with each scan
+  group under ``torch.utils.checkpoint`` when grad mode is on and
+  ``cfg.remat`` is not ``"none"``), ``prefill`` (last logits + cache),
   ``decode_step`` (one token + cache update).  Caches are not written in
   place: each step returns a new one.
 
@@ -24,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -36,7 +39,7 @@ from .layers import (ParamRng, init_norm, apply_norm, init_gated_mlp,
                      gated_mlp, init_dense, mm32)
 
 __all__ = ["Model", "param_count", "params_from_reference",
-           "layer_groups", "tree_map", "tree_leaves"]
+           "layer_groups", "tree_map", "tree_leaves", "tree_unzip"]
 
 
 def tree_map(fn, *trees):
@@ -58,6 +61,18 @@ def tree_leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_unzip(tree, n: int) -> tuple:
+    """``n`` trees from the output of ``tree_map`` over a function that
+    returns ``n``-tuples (the tuples are its leaves)."""
+    if isinstance(tree, tuple):
+        return tree
+    if isinstance(tree, dict):
+        parts = {k: tree_unzip(v, n) for k, v in tree.items()}
+        return tuple({k: p[i] for k, p in parts.items()} for i in range(n))
+    parts = [tree_unzip(v, n) for v in tree]
+    return tuple([p[i] for p in parts] for i in range(n))
 
 
 # ----------------------------------------------------------------- grouping
@@ -238,46 +253,63 @@ class Model:
     def _stack_walk(self, params, x, cache, after_group=None):
         """Run prelude -> scan groups -> postlude.  Returns (x, new_cache,
         aux).  ``after_group(i, x)``, when given, sees the hidden state
-        after scan group ``i``."""
+        after scan group ``i``.  The forward (no cache) under grad mode
+        recomputes each scan group in the backward when ``cfg.remat`` asks
+        for it; prefill and decode never do."""
         cfg = self.cfg
         cache_len = cache["len"] if cache is not None else None
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_cache: dict | None = {} if cache is not None else None
 
-        def run(blocks, kinds, caches, moe_layer):
-            nonlocal x, aux_total
+        def run(x, aux, blocks, kinds, caches, moe_layer):
+            """The blocks in order: (x, aux, their new caches)."""
             outs = []
             for j, (p, kind) in enumerate(zip(blocks, kinds)):
                 c = caches[j] if caches is not None else None
-                x, nc, aux = self._block(p, x, kind, c, cache_len, moe_layer)
-                aux_total = aux_total + aux
+                x, nc, a = self._block(p, x, kind, c, cache_len, moe_layer)
+                aux = aux + a
                 outs.append(nc)
-            return outs
+            return x, aux, outs
+
+        def scan_group(x, aux, gp):
+            """One scan group without a cache: (x, aux) after it."""
+            return run(x, aux, gp, self.sb, None, cfg.moe is not None)[:2]
 
         if self.pre:
-            outs = run(params["prelude"], self.pre,
-                       cache["prelude"] if cache is not None else None, False)
+            x, aux, outs = run(x, aux, params["prelude"], self.pre,
+                               cache["prelude"] if cache is not None
+                               else None, False)
             if cache is not None:
                 new_cache["prelude"] = outs
         if self.n_scan:
-            moe_layer = cfg.moe is not None
+            remat = (cache is None and torch.is_grad_enabled()
+                     and cfg.remat != "none")
             outs = []
             for i in range(self.n_scan):
-                gp = [tree_map(lambda t: t[i], group)
-                      for group in params["scan"]]
-                outs.append(run(gp, self.sb, cache["scan"][i]
-                                if cache is not None else None, moe_layer))
+                gp = [tree_map(lambda t: t[i], blocks)
+                      for blocks in params["scan"]]
+                if remat:
+                    # the reference's jax.checkpoint of each scan group:
+                    # the backward keeps only the group's inputs
+                    x, aux = checkpoint(scan_group, x, aux, gp,
+                                        use_reentrant=False)
+                elif cache is None:
+                    x, aux = scan_group(x, aux, gp)
+                else:
+                    x, aux, o = run(x, aux, gp, self.sb, cache["scan"][i],
+                                    cfg.moe is not None)
+                    outs.append(o)
                 if after_group is not None:
                     after_group(i, x)
             if cache is not None:
                 new_cache["scan"] = outs
         if self.post:
-            outs = run(params["postlude"], self.post,
-                       cache["postlude"] if cache is not None else None,
-                       False)
+            x, aux, outs = run(x, aux, params["postlude"], self.post,
+                               cache["postlude"] if cache is not None
+                               else None, False)
             if cache is not None:
                 new_cache["postlude"] = outs
-        return x, new_cache, aux_total
+        return x, new_cache, aux
 
     # ------------------------------------------------------------ public
     def forward(self, params, tokens, prefix_embeds=None):

@@ -1,0 +1,1 @@
+from .adamw import AdamWState, adamw_init, adamw_update, cosine_schedule  # noqa: F401

@@ -2,7 +2,10 @@
 generation loop and cascade early-exit serving).
 
 ``serve_step`` for the dry-run shapes is the **decode** step: one new
-token against a KV/recurrent cache of the shape's length."""
+token against a KV/recurrent cache of the shape's length.  Every step and
+``generate`` run under ``torch.no_grad()``: parameters fresh from training
+(which require grad) serve as their detached copies would, and no output
+requires grad."""
 
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 
 
 def make_prefill_step(model):
+    @torch.no_grad()
     def prefill_step(params, tokens, cache, prefix_embeds=None):
         return model.prefill(params, tokens, cache,
                              prefix_embeds=prefix_embeds)
@@ -31,6 +35,7 @@ def make_decode_step(model, *, sample: bool = False):
     """``decode_step(params, token, cache, rng=None) -> (next, cache,
     logits)``; sampling draws from ``rng``, a ``torch.Generator`` on the
     model's device."""
+    @torch.no_grad()
     def decode_step(params, token, cache, rng=None):
         logits, cache = model.decode_step(params, token, cache)
         if sample:
@@ -45,6 +50,7 @@ def make_decode_step(model, *, sample: bool = False):
 
 def make_cascade_decode_step(model, ecfg):
     """Early-exit (paper-cascade) decode step; returns exit depths too."""
+    @torch.no_grad()
     def decode_step(params, token, cache):
         logits, cache, depth = decode_step_cascade(model, params, token,
                                                    cache, ecfg)
@@ -52,6 +58,7 @@ def make_cascade_decode_step(model, ecfg):
     return decode_step
 
 
+@torch.no_grad()
 def generate(model, params, prompt_tokens, max_new: int = 32,
              max_len: int | None = None, prefix_embeds=None,
              sample: bool = False, seed: int = 0):

@@ -11,8 +11,10 @@ background thread, a fleet's degraded sessions equal to lone CPU
 ``VideoDetector``s on their stretched configs, a tiny cascade trained
 on the card equal bit for bit to the CPU's; and the LM stack: every
 architecture's smoke config (forward, prefill and decode logits), greedy
-``generate`` and the blockwise flash forward on the card equal to the
-CPU's within the reference's tolerances (float32, TF32 off).  Imports
+``generate``, the blockwise flash forward and backward, and an olmo smoke
+train step's metrics, gradients and AdamW update on the card equal to
+the CPU's within the reference's tolerances (float32, TF32 off), and a
+checkpoint of bf16 leaves on the card restored bit for bit.  Imports
 only torch, numpy and the port, so it runs where jax is not installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -584,3 +586,79 @@ def test_lm_flash_forward_on_card_equals_cpu(card, no_tf32, s, hq, g, causal,
     np.testing.assert_allclose(
         got.cpu().numpy(), attention_reference(q, k, v, causal,
                                                window).numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hq,g,causal,window,cq,ckv", [
+    (50, 6, 2, True, 24, 16, 16), (96, 6, 2, False, None, 32, 32),
+    (300, 4, 2, True, None, 128, 64)])
+def test_lm_flash_backward_on_card_equals_cpu(card, no_tf32, s, hq, g, causal,
+                                              window, cq, ckv):
+    """dq, dk, dv on the card equal the CPU's within the reference's flash
+    gradient tolerance (rtol 1e-3, atol 1e-4), float32."""
+    from repro_torch.models.layers import flash_attention
+    rng = np.random.default_rng(2)
+    arrays = [rng.standard_normal((2, s, h, 16)).astype(np.float32)
+              for h in (hq, hq // g, hq // g)]
+    do = torch.from_numpy(rng.standard_normal((2, s, hq, 16)).astype(
+        np.float32))
+    grads = []
+    for dev in (card, torch.device("cpu")):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrays]
+        flash_attention(*ts, causal, window, cq, ckv).backward(do.to(dev))
+        grads.append([t.grad.cpu() for t in ts])
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-3,
+                                   atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lm_train_step_on_card_equals_cpu(card, no_tf32):
+    """olmo smoke, microbatches of 2: loss and metrics at rtol 1e-5, every
+    gradient leaf within 1e-4 of its largest |g|; then ``adamw_update``
+    fed the CPU's gradients on both sides within rtol 1e-6 (and 1e-6 of
+    the leaf's largest |value|)."""
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train.train_step import batch_grads
+    gpu, g_params, cpu, c_params = lm_pair("olmo-1b", card)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(3).integers(
+        0, cpu.cfg.vocab_size, (4, 33)).astype(np.int32))}
+    g_gpu, m_gpu = batch_grads(gpu, g_params, {"tokens":
+                                               batch["tokens"].to(card)},
+                               microbatch=2)
+    g_cpu, m_cpu = batch_grads(cpu, c_params, batch, microbatch=2)
+    for k in m_cpu:
+        np.testing.assert_allclose(float(m_gpu[k]), float(m_cpu[k]),
+                                   rtol=1e-5, err_msg=k)
+    for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu)):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    outs = []
+    for p, dev in ((g_params, card), (c_params, torch.device("cpu"))):
+        new_p, opt, _ = adamw_update(p, tree_map(lambda t: t.to(dev), g_cpu),
+                                     adamw_init(p), 1e-3)
+        outs.append([t.cpu() for t in tree_leaves([new_p, opt.m, opt.v])])
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_lm_checkpoint_bf16_round_trip_on_card(card, tmp_path):
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    gen = torch.Generator(device=card).manual_seed(0)
+    tree = {"w": torch.randn((3, 5), generator=gen, device=card).to(
+                torch.bfloat16),
+            "stack": [torch.randn((2, 4), generator=gen,
+                                  device=card).to(torch.bfloat16)],
+            "step": torch.tensor(7, dtype=torch.int32, device=card)}
+    save_checkpoint(str(tmp_path), 7, tree)
+    like = {k: (torch.zeros_like(v) if k != "stack"
+                else [torch.zeros_like(v[0])]) for k, v in tree.items()}
+    got, step, _ = restore_checkpoint(str(tmp_path), like, device=card)
+    assert step == 7
+    for a, b in ((got["w"], tree["w"]), (got["stack"][0], tree["stack"][0]),
+                 (got["step"], tree["step"])):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
