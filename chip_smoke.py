@@ -126,6 +126,25 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
    autograd through the oracle, timed beside the backward of
    ``scaled_dot_product_attention`` and its bound (``check_lm_train``).
    No hand kernel runs: this phase launches none of S, A, B, C, D.
+12. the mesh path: ``repro_torch.distributed`` (DTensor) on a one-rank
+   NCCL mesh (``one_rank_mesh``: ``make_smoke_mesh(1, 1)``, ZeRO and
+   sequence parallelism on), at ``olmo-1b``'s full width: phase 11's
+   steps from the same state (losses and step-1 parameters against phase
+   11's, bit for bit or within the reference's sharded bounds;
+   placements kept; ms per step beside phase 11's; peak memory; one
+   profiled step's device time and the host's share), phase 10's prompts
+   for ``MESH_NEW`` greedy tokens through the 2D decode layout (phase
+   10's tokens; ms per prefill and decode step beside phase 10's), the
+   ``qwen3-moe`` smoke experts in both ``shard_map`` forms against one
+   device, ``compressed_psum`` over NCCL against
+   ``decompress_leaf(compress_leaf(g))`` bit for bit, step 1's parameters
+   saved and restored onto the mesh (``shardings=``) and into the
+   one-device model (0 entries differ), the dry run of ``MESH_DRYRUN`` on
+   the production meshes in subprocesses (per-device argument
+   bytes, tracked peak, collective bytes, roofline terms), and phase 11's
+   step against its analytic roofline at H100 constants
+   (``check_lm_mesh``).  No hand kernel runs: this phase launches none of
+   S, A, B, C, D.
 
 Every path driven on the card runs with the launch counts set to 0 just
 before it and read just after: each must have launched the kernels of its
@@ -140,14 +159,14 @@ keyframes, C; trained, the trained cascade's flush: S, A, C) and none it
 must not (no engine, service or fleet path launches D; no stream,
 service or fleet path B; an incremental frame no dense kernel; lm, the
 whole LM phase, none of the five; lm_train, the whole training phase,
-none of the five).
+none of the five; lm_mesh, the whole mesh phase, none of the five).
 
 Device times come from ``profiled_ms``, which divides a trace's device
 time by the launches the trace holds, not by the calls requested.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"stream": {...}}``, ``{"service": {...}}``, ``{"fleet":
-{...}}``, ``{"training": {...}}``, ``{"lm": {...}}`` and ``{"lm_train":
+{...}}``, ``{"training": {...}}``, ``{"lm": {...}}``, ``{"lm_train": {...}}`` and ``{"lm_mesh":
 {...}}`` line each, and
 last ``{"ok": true,
 "device": {...}}``; it exits non-zero, with no result line, when there is
@@ -164,8 +183,10 @@ add/sub + 1 multiply + 1 add) + normalize (2) + compare, select, add = 20.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -246,6 +267,21 @@ LM_TRAIN_CHECK = dict(n_layers=2, batch=1, seq=1100, grad_rel=1e-4,
 # (the roundings of p and ds to bf16 before their products, summed over
 # up to 4096 keys or queries, exceed one ulp of a small entry)
 LM_BWD_ATOL_SHARE = 2 ** -6
+# phase 12: the mesh path on a one-rank NCCL mesh, phase 11's training
+# (steps from the same state; the first holds the step's DTensor set-up;
+# at one rank every loss, grad norm and step-1 moment equals phase 11's
+# bit for bit) and phase 10's serving (the first new tokens); the
+# reference's sharded-vs-local MoE bounds (tests/test_distributed.py:
+# 111-114); the dry-run cells (arch, shape, multi-pod) priced on the
+# production meshes
+MESH_TRAIN_STEPS = 3
+MESH_NEW = 8
+MESH_BOUNDS = dict(moe=5e-4, aux=5e-3)
+MESH_MOE_TOKENS = (4, 16)
+MESH_DRYRUN = (("olmo-1b", "train_4k", False),
+               ("olmo-1b", "train_4k", True),
+               ("qwen3-moe-235b-a22b", "decode_32k", False))
+MESH_DRYRUN_TIMEOUT = 600
 
 
 def fail(msg: str) -> int:
@@ -476,42 +512,54 @@ def stream_workload(device, n_frames: int = STREAM_FRAMES):
     return det, StreamConfig(**STREAM_CONFIG), videos
 
 
-def lm_workload(torch, device):
+def lm_workload(torch, device, rules=None):
     """Phase 10's LM serving workload: ``LM_ARCH`` at full width, its
     weights drawn on ``device`` from seed ``SEED`` (the repo ships no LM
     weights) and ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens from a numpy
-    generator seeded ``SEED``.  Returns ``(model, params, prompts)``."""
+    generator seeded ``SEED``.  With ``rules`` (phase 12) the model takes
+    the mesh path: the same weights, placed by ``param_pspecs``, and the
+    prompts spread over dp.  Returns ``(model, params, prompts)``."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     cfg = get_config(LM_ARCH)
-    model = Model(cfg, device)
+    model = Model(cfg, device, rules)
     params = model.init(torch.Generator(device=device).manual_seed(SEED))
     prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(device)
+    if rules is not None:
+        from repro_torch.distributed.sharding import batch_pspecs, distribute
+        prompts = distribute({"t": prompts}, batch_pspecs(
+            {"t": prompts}, rules), rules.mesh)["t"]
     return model, params, prompts
 
 
-def lm_train_workload(torch, device, remat: str = "block"):
+def lm_train_workload(torch, device, remat: str = "block", rules=None):
     """Phase 11's training workload: ``LM_ARCH`` at full width (its remat
     set to ``remat``), a ``TrainState`` drawn on ``device`` from seed
     ``SEED``, the ``SyntheticTokens`` pipeline of ``LM_TRAIN_BATCH`` x
     ``LM_TRAIN_SEQ`` tokens and the train step (microbatch
-    ``LM_TRAIN_MICRO``, ``LM_TRAIN_OPT``).  Returns ``(model, state,
-    batch_at, step)``; ``batch_at(i)`` is step i's batch on the device."""
+    ``LM_TRAIN_MICRO``, ``LM_TRAIN_OPT``).  With ``rules`` (phase 12) the
+    same state is placed by the mesh's specs and each batch spread over
+    dp.  Returns ``(model, state, batch_at, step)``; ``batch_at(i)`` is
+    step i's batch on the device."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
+    from repro_torch.distributed.sharding import batch_pspecs, distribute
     from repro_torch.models import Model
     from repro_torch.train import init_train_state, make_train_step
-    model = Model(get_config(LM_ARCH).with_(remat=remat), device)
+    model = Model(get_config(LM_ARCH).with_(remat=remat), device, rules)
     state = init_train_state(
         model, torch.Generator(device=device).manual_seed(SEED))
     pipe = SyntheticTokens(model.cfg.vocab_size, LM_TRAIN_BATCH,
                            LM_TRAIN_SEQ, seed=SEED)
 
     def batch_at(i):
-        return {k: torch.from_numpy(v).to(device)
-                for k, v in pipe(i).items()}
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in pipe(i).items()}
+        if rules is not None:
+            batch = distribute(batch, batch_pspecs(batch, rules), rules.mesh)
+        return batch
 
     return model, state, batch_at, make_train_step(
         model, microbatch=LM_TRAIN_MICRO, **LM_TRAIN_OPT)
@@ -1536,7 +1584,7 @@ def check_training(torch, on_path, smi: str):
     return out, ""
 
 
-def check_lm(torch, on_path, smi: str):
+def check_lm(torch, on_path, smi: str, carry: dict | None = None):
     """Phase 10.  Returns ``(report, error)``; ``error`` is '' when every
     check held.
 
@@ -1625,6 +1673,8 @@ def check_lm(torch, on_path, smi: str):
         out["decode_tokens_per_s"] = (LM_BATCH * 1e3
                                       / out["ms_per_decode_step"])
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        if carry is not None:        # phase 12 serves the same prompts
+            carry["tokens"] = toks
         if not torch.equal(first, toks):
             return "generate: two runs gave different tokens"
         if toks.shape != (LM_BATCH, LM_NEW) or not bool(
@@ -1805,7 +1855,7 @@ def check_lm(torch, on_path, smi: str):
 
 
 
-def check_lm_train(torch, on_path, smi: str):
+def check_lm_train(torch, on_path, smi: str, carry: dict | None = None):
     """Phase 11.  Returns ``(report, error)``; ``error`` is '' when every
     check held.
 
@@ -1879,12 +1929,21 @@ def check_lm_train(torch, on_path, smi: str):
             ev[1].record()
             marks.append(ev)
             metrics.append(m)
+            if i == 0 and carry is not None:   # phase 12's comparison
+                carry["params_step1"] = state.params
+                # on the host, so phase 11's peak stays its own
+                carry["opt_step1"] = tree_map(lambda t: t.cpu(),
+                                              (state.opt.m, state.opt.v))
         torch.cuda.synchronize()
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         ms = [a.elapsed_time(b) for a, b in marks]
         tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
         out["ms_per_step_runs"] = ms
         out["ms_per_step"] = statistics.median(ms[1:])
+        if carry is not None:
+            carry.update(loss=[float(x["loss"]) for x in metrics],
+                         grad_norm=[float(x["grad_norm"]) for x in metrics],
+                         ms_per_step=out["ms_per_step"])
         out["tokens_per_s"] = tokens * 1e3 / out["ms_per_step"]
         out["model_flops_per_step"] = 6 * n * tokens
         out["mfu"] = (out["model_flops_per_step"] / (out["ms_per_step"]
@@ -2089,6 +2148,461 @@ def check_lm_train(torch, on_path, smi: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         err, path_err = on_path("lm_train", phase, (),
+                                tuple(KERNEL_ENTRIES.values()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, err or path_err
+
+
+@contextlib.contextmanager
+def one_rank_mesh(torch):
+    """A one-rank NCCL process group (its store a file in a temporary
+    directory) and ``make_smoke_mesh(1, 1)`` on the card; the group is
+    destroyed and the directory removed on exit."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    d = tempfile.mkdtemp(prefix="nccl_store_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(d, "store"), 1), world_size=1, rank=0)
+    try:
+        yield make_smoke_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def leaf_diff(torch, got, want) -> tuple[int, float, int]:
+    """(entries that differ, largest |difference|, entries) over two
+    trees of tensors (DTensors compared by their local shards, whole on
+    one rank; each leaf of ``want`` brought to ``got``'s device)."""
+    from repro_torch.tree import tree_leaves
+    n_diff, worst, total = 0, 0.0, 0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a = a.to_local() if hasattr(a, "to_local") else a
+        b = b.to_local() if hasattr(b, "to_local") else b
+        b = b.to(a.device)
+        bad = a != b
+        n_diff += int(bad.sum())
+        total += a.numel()
+        if bool(bad.any()):
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+    return n_diff, worst, total
+
+
+def dryrun_cells(cells) -> list:
+    """``python -m repro_torch.launch.dryrun`` for each (arch, shape,
+    multi-pod), all at once, each in a process of its own (the fake world
+    never touches this one); started here, read by ``finish()``."""
+    import tempfile
+    d = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, multi_pod in cells:
+        path = os.path.join(d, f"{arch}_{shape}_{int(multi_pod)}.json")
+        procs.append((path, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", path]
+            + (["--multi-pod"] if multi_pod else []),
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+
+    def finish() -> list:
+        results = []
+        for path, proc in procs:
+            try:
+                log, _ = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT)
+            finally:
+                proc.kill()
+            if proc.returncode != 0 or not os.path.exists(path):
+                raise RuntimeError(f"dryrun exit {proc.returncode}: "
+                                   f"{log[-2000:]}")
+            with open(path) as f:
+                results.extend(json.load(f))
+        return results
+
+    return finish
+
+
+def check_lm_mesh(torch, on_path, smi: str, lm: dict, lm_train: dict,
+                  carry: dict):
+    """Phase 12.  Returns ``(report, error)``; ``error`` is '' when every
+    check held.  ``lm`` / ``lm_train`` are phases 10 and 11's reports and
+    ``carry`` what they handed on (phase 10's tokens, phase 11's losses
+    and its parameters after step 1).
+
+    The mesh path (``repro_torch.distributed``, DTensor) on a one-rank
+    NCCL mesh (``one_rank_mesh``), ``make_rules(mesh)`` with ZeRO and
+    sequence parallelism on:
+
+    - training: ``lm_train_workload`` with the rules (the same state and
+      batches as phase 11, placed by the specs), ``MESH_TRAIN_STEPS``
+      steps: every loss and grad norm, and the parameters and both AdamW
+      moments after step 1, equal phase 11's bit for bit (one rank: its
+      collectives are copies).  Step 1's learning rate is 0 in the
+      warm-up, so its parameters are the initial draw; the moments carry
+      its gradients (m = 0.1 g, v = 0.05 g^2, g clipped), so they are
+      what holds the mesh's forward and backward; placements kept; ms per step (CUDA events; the median after the
+      first) beside phase 11's, host ms, peak memory; one more step under
+      ``torch.profiler``: device ms, device operations and the host's
+      share (1 - device ms / the untraced step's ms);
+    - serving: ``lm_workload`` with the rules, ``generate`` of phase 10's
+      prompts for ``MESH_NEW`` tokens through the 2D decode layout: phase
+      10's first tokens; ms per prefill and decode step beside phase
+      10's;
+    - MoE: ``qwen3-moe-235b-a22b``'s smoke config at capacity 16 (float32)
+      on the mesh, its forward (1D ``shard_map``) and its layer-0 experts
+      in the 2D decode form, against the one-device model;
+    - ``compressed_psum`` over the mesh's ``data`` dim and over the world
+      group: ``decompress_leaf(*compress_leaf(g))``'s bits;
+    - elastic restore: step 1's mesh parameters saved (gathered, bf16),
+      restored with ``shardings=`` onto the mesh and with none into the
+      one-device model: 0 entries differ; the directory removed;
+    - the dry-run of ``MESH_DRYRUN`` on the production meshes, (16, 16)
+      and (2, 16, 16), in subprocesses (a fake world of 256 or 512 ranks
+      each): per-device argument bytes, tracked peak, collective bytes by
+      kind, roofline terms at H100 constants, trace seconds;
+    - the yardstick: ``analytic_cost`` of phase 11's step at H100 bf16 /
+      HBM rates beside phase 11's measured ms (a roofline fraction).
+
+    No hand kernel runs: the launch counts of S, A, B, C and D stay 0."""
+    import shutil
+    import statistics
+    import tempfile
+    from dataclasses import replace
+    import numpy as np
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.distributed.tensor import distribute_tensor
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import ShapeSpec, get_config, get_smoke_config
+    from repro_torch.distributed import (compress_leaf, compressed_psum,
+                                         decompress_leaf)
+    from repro_torch.distributed.sharding import (batch_pspecs, distribute,
+                                                  local_bytes, make_rules,
+                                                  param_pspecs, placements,
+                                                  shardings_of)
+    from repro_torch.launch.roofline import analytic_cost
+    from repro_torch.models import Model
+    from repro_torch.serve import generate
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    out: dict = {"card": smi, "arch": LM_ARCH, "mesh": {"data": 1,
+                                                        "model": 1},
+                 "backend": "nccl", "rules": {"fsdp": True, "sp": True}}
+    held: dict = {}
+
+    def train(mesh):
+        rules = make_rules(mesh)
+        out["memory_allocated_before"] = torch.cuda.memory_allocated()
+        model, state, batch_at, step = lm_train_workload(torch, dev,
+                                                         rules=rules)
+        placed = [t.placements for t in tree_leaves(state.params)]
+        marks, walls, losses, norms = [], [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(MESH_TRAIN_STEPS):
+            batch = batch_at(i)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            state, m = step(state, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            marks.append(ev)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            if i == 0:
+                held["step1"] = state.params
+                # the moments against phase 11's now, so neither pair is
+                # held through the later steps
+                moments = [leaf_diff(torch, a, b) for a, b in zip(
+                    (state.opt.m, state.opt.v), carry.pop("opt_step1"))]
+        ms = [a.elapsed_time(b) for a, b in marks]
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out["ms_per_step_runs"] = ms
+        out["ms_per_step"] = statistics.median(ms[1:])
+        out["host_ms_per_step_runs"] = walls
+        out["phase11_ms_per_step"] = lm_train["ms_per_step"]
+        out["loss"] = losses
+        out["phase11_loss"] = carry["loss"][:MESH_TRAIN_STEPS]
+        out["grad_norm"] = norms
+        out["phase11_grad_norm"] = carry["grad_norm"][:MESH_TRAIN_STEPS]
+        n_diff, worst, total = leaf_diff(torch, held["step1"],
+                                         carry["params_step1"])
+        out["params_step1"] = {"entries_differ": n_diff, "max_abs_diff":
+                               worst, "entries": total}
+        for name, (nd, w, _) in zip(("m", "v"), moments):
+            out[f"opt_{name}_step1"] = {"entries_differ": nd,
+                                        "max_abs_diff": w}
+        m_diff = moments[0][0] + moments[1][0]
+        kept = all(t.placements == p for t, p in zip(
+            tree_leaves(state.params), placed)) and all(
+            t.placements == p for t, p in zip(tree_leaves(state.opt.m),
+                                              placed))
+        out["placements_kept"] = kept
+        batch = batch_at(MESH_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            traced = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        out["profiled_step"] = {
+            "traced_ms": traced, "device_ms": busy,
+            "device_ops": sum(e.count for e in events),
+            "host_share": 1.0 - busy / statistics.median(walls[1:])}
+        p = out["profiled_step"]
+        same_loss = losses == out["phase11_loss"]
+        same_norm = norms == out["phase11_grad_norm"]
+        print(f"lm_mesh train {LM_ARCH} bf16 on a one-rank NCCL mesh "
+              f"(data 1, model 1; ZeRO, SP), phase 11's state and batches: "
+              f"losses {losses} vs phase 11 {out['phase11_loss']} (equal "
+              f"{same_loss}); grad norms {norms} vs {out['phase11_grad_norm']}"
+              f" (equal {same_norm}); after step 1, entries differing from "
+              f"phase 11's: params {n_diff} of {total} (lr 0 in the "
+              f"warm-up), moment m {moments[0][0]} (max "
+              f"{moments[0][1]:.3g}), v {moments[1][0]} (max "
+              f"{moments[1][1]:.3g}); "
+              f"placements kept {kept}; {out['ms_per_step']:.1f} ms per "
+              f"step (steps {[round(x, 1) for x in ms]}; host clock "
+              f"{[round(x, 1) for x in walls]}) vs phase 11's "
+              f"{lm_train['ms_per_step']:.1f}; peak "
+              f"{out['max_memory_allocated'] / 2**30:.2f} GiB (earlier "
+              f"phases hold {out['memory_allocated_before'] / 2**30:.2f}); "
+              f"one traced step: device {busy:.1f} ms of {traced:.1f} ms, "
+              f"{p['device_ops']} device operations, host share "
+              f"{p['host_share']:.3f} [{smi}]")
+        bad = [x for x in losses + norms if not np.isfinite(x)]
+        if bad or not kept:
+            return (f"mesh training: losses {losses}, grad norms {norms}, "
+                    f"placements kept {kept}")
+        if not (same_loss and same_norm) or n_diff or m_diff:
+            return (f"mesh training: off phase 11's bits (losses equal "
+                    f"{same_loss}, grad norms equal {same_norm}; step 1 "
+                    f"entries differ: params {n_diff}, moments {m_diff})")
+        return ""
+
+    def serve(mesh):
+        model, params, prompts = lm_workload(torch, dev, make_rules(mesh))
+        marks: dict = {"prefill": [], "decode": []}
+
+        def timed(name, fn):
+            def run(*a, **k):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                res = fn(*a, **k)
+                ev[1].record()
+                marks[name].append(ev)
+                return res
+            return run
+
+        model.prefill = timed("prefill", model.prefill)
+        model.decode_step = timed("decode", model.decode_step)
+        generate(model, params, prompts, max_new=MESH_NEW)     # warm-up
+        for v in marks.values():
+            v.clear()
+        toks = generate(model, params, prompts, max_new=MESH_NEW)
+        torch.cuda.synchronize()
+        ms = {n: [a.elapsed_time(b) for a, b in v] for n, v in marks.items()}
+        got = toks.full_tensor()
+        want = carry["tokens"][:, :MESH_NEW]
+        equal = bool(torch.equal(got, want))
+        out["serve"] = {"batch": LM_BATCH, "prompt": LM_PROMPT,
+                        "new": MESH_NEW, "tokens_equal_phase10": equal,
+                        "ms_per_prefill": ms["prefill"][0],
+                        "ms_per_decode_step": statistics.median(
+                            ms["decode"][1:]),
+                        "phase10_ms_per_prefill": lm["ms_per_prefill"],
+                        "phase10_ms_per_decode_step":
+                            lm["ms_per_decode_step"]}
+        v = out["serve"]
+        print(f"lm_mesh serve {LM_ARCH} bf16, {LM_BATCH} x {LM_PROMPT} + "
+              f"{MESH_NEW} greedy through the 2D decode layout: tokens "
+              f"equal phase 10's {equal}; prefill {v['ms_per_prefill']:.3f}"
+              f" ms (phase 10 {lm['ms_per_prefill']:.3f}), decode step "
+              f"{v['ms_per_decode_step']:.3f} ms (phase 10 "
+              f"{lm['ms_per_decode_step']:.3f}) [{smi}]")
+        if not equal:
+            return "mesh serving: greedy tokens differ from phase 10's"
+        return ""
+
+    def moe(mesh):
+        cfg = get_smoke_config("qwen3-moe-235b-a22b")
+        cfg = cfg.with_(moe=replace(cfg.moe, capacity_factor=16.0))
+        rules = make_rules(mesh)
+        one, sharded = Model(cfg, dev), Model(cfg, dev, rules)
+        params = one.init(torch.Generator(device=dev).manual_seed(SEED))
+        p_mesh = distribute(params, param_pspecs(params, rules), mesh)
+        tokens = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
+            0, cfg.vocab_size, MESH_MOE_TOKENS)).to(dev)
+        with torch.no_grad():
+            want, aux1 = one.forward(params, tokens)
+            got, aux2 = sharded.forward(p_mesh, distribute(
+                {"t": tokens}, batch_pspecs({"t": tokens}, rules),
+                mesh)["t"])
+            x = torch.randn((MESH_MOE_TOKENS[0], 1, cfg.d_model),
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(SEED + 5), device=dev)
+            layer = {k: ({"w": v["w"][0]} if k == "router" else v[0])
+                     for k, v in params["scan"][0]["ffn"]["moe"].items()}
+            layer_m = {k: ({"w": v["w"][0]} if k == "router" else v[0])
+                       for k, v in p_mesh["scan"][0]["ffn"]["moe"].items()}
+            y1, a1 = one._moe(layer, x)
+            xd = distribute_tensor(x, mesh, placements(
+                rules.spec(None, None, "dp"), mesh))
+            y2, a2 = sharded._moe(layer_m, xd, decode2d=True)
+        err1 = float((got.full_tensor() - want).abs().max())
+        err2 = float((y2.full_tensor() - y1).abs().max())
+        daux = [abs(float(aux1) - float(aux2)), abs(float(a1) - float(a2))]
+        out["moe"] = {"config": "qwen3-moe-235b-a22b smoke, capacity 16",
+                      "forward_err": err1, "decode2d_err": err2,
+                      "aux_diff": daux, "bounds": [MESH_BOUNDS["moe"],
+                                                   MESH_BOUNDS["aux"]]}
+        print(f"lm_mesh moe (qwen3-moe smoke, capacity 16, float32): 1D "
+              f"forward max err {err1:.3g}, 2D decode form {err2:.3g} "
+              f"(bound {MESH_BOUNDS['moe']}); |d aux| {daux} (bound "
+              f"{MESH_BOUNDS['aux']}) [{smi}]")
+        if not (err1 < MESH_BOUNDS["moe"] and err2 < MESH_BOUNDS["moe"]
+                and max(daux) < MESH_BOUNDS["aux"]):
+            return "mesh MoE: outside the reference's bounds"
+        return ""
+
+    def psum(mesh):
+        g = torch.randn(1 << 20, generator=torch.Generator(device=dev)
+                        .manual_seed(SEED + 6), device=dev)
+        want = decompress_leaf(*compress_leaf(g))
+        same = []
+        for axis in ((mesh, "data"), dist.group.WORLD):
+            got = compressed_psum(g, axis)
+            same.append(bool(torch.equal(got.view(torch.int32),
+                                         want.view(torch.int32))))
+        out["compressed_psum"] = {"entries": g.numel(),
+                                  "bit_equal": same}
+        print(f"lm_mesh compressed_psum over NCCL ({g.numel()} entries; "
+              f"mesh dim 'data', world group): equal to "
+              f"decompress_leaf(compress_leaf(g)) bit for bit {same} "
+              f"[{smi}]")
+        return "" if all(same) else "compressed_psum: bits differ"
+
+    def restore(mesh):
+        saved = held.pop("step1")
+        d = tempfile.mkdtemp(prefix="lm_mesh_ckpt_")
+        try:
+            t0 = time.perf_counter()
+            save_checkpoint(d, 1, saved)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            onto, _, _ = restore_checkpoint(d, saved,
+                                            shardings=shardings_of(saved))
+            t_mesh = time.perf_counter() - t0
+            n_mesh = leaf_diff(torch, onto, saved)[0]
+            kept = all(a.placements == b.placements for a, b in zip(
+                tree_leaves(onto), tree_leaves(saved)))
+            del onto
+            t0 = time.perf_counter()
+            whole, _, _ = restore_checkpoint(d, carry["params_step1"],
+                                             device=dev)
+            t_one = time.perf_counter() - t0
+            n_one = leaf_diff(torch, whole, saved)[0]
+            del whole
+        finally:
+            shutil.rmtree(d)
+        out["restore"] = {"bytes": local_bytes(saved), "save_s": t_save,
+                          "restore_mesh_s": t_mesh, "restore_one_s": t_one,
+                          "entries_differ_mesh": n_mesh,
+                          "entries_differ_one_device": n_one,
+                          "placements_kept": kept}
+        print(f"lm_mesh elastic restore: step 1's params "
+              f"({local_bytes(saved) / 1e9:.2f} GB bf16) saved in "
+              f"{t_save:.1f} s; restored onto the mesh with shardings= in "
+              f"{t_mesh:.1f} s ({n_mesh} entries differ, placements kept "
+              f"{kept}) and into the one-device model in {t_one:.1f} s "
+              f"({n_one} differ) [{smi}]")
+        if n_mesh or n_one or not kept:
+            return "elastic restore: entries or placements differ"
+        return ""
+
+    def yardstick():
+        spec = ShapeSpec("phase11", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+        cost = analytic_cost(get_config(LM_ARCH), spec)
+        compute_ms = cost["flops"] / BF16_OPS * 1e3
+        memory_ms = cost["hbm_bytes"] / MEM_BPS * 1e3
+        bound = max(compute_ms, memory_ms)
+        out["yardstick"] = {
+            "analytic_flops": cost["flops"],
+            "analytic_hbm_bytes": cost["hbm_bytes"],
+            "compute_ms": compute_ms, "memory_ms": memory_ms,
+            "bound_ms": bound, "phase11_ms": lm_train["ms_per_step"],
+            "roofline_fraction": bound / lm_train["ms_per_step"],
+            "mesh_roofline_fraction": bound / out["ms_per_step"]}
+        y = out["yardstick"]
+        print(f"lm_mesh yardstick: analytic_cost of phase 11's step "
+              f"({LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, remat) "
+              f"{cost['flops'] / 1e12:.2f} TFLOP, "
+              f"{cost['hbm_bytes'] / 1e9:.2f} GB: compute bound "
+              f"{compute_ms:.1f} ms at {BF16_OPS / 1e12:.0f} TFLOP/s, "
+              f"memory {memory_ms:.1f} ms at {MEM_BPS / 1e12:.2f} TB/s; "
+              f"phase 11 {lm_train['ms_per_step']:.1f} ms = "
+              f"{y['roofline_fraction']:.2%} of the bound; mesh step "
+              f"{y['mesh_roofline_fraction']:.2%} [{smi}]")
+        return ""
+
+    def dryrun(finish):
+        cells = finish()
+        out["dryrun"] = cells
+        for c in cells:
+            if not c.get("ok"):
+                return f"dryrun {c['arch']} x {c['shape']}: {c.get('error')}"
+            m, r = c["memory"], c["roofline"]
+            print(f"lm_mesh dryrun [{c['mesh']}] {c['arch']} x {c['shape']}"
+                  f": per device arguments "
+                  f"{m['argument_size_in_bytes'] / 2**30:.3f} GiB, tracked "
+                  f"peak {m['peak_memory_in_bytes'] / 2**30:.3f} GiB; "
+                  f"collectives {c['collective_bytes'] / 2**30:.3f} GiB "
+                  f"{ {k: round(v / 2**30, 3) for k, v in c['collective_ops'].items()} }"
+                  f" in {r['collective_ops']} ops; roofline at H100: "
+                  f"compute {r['compute_s'] * 1e3:.2f} ms, memory "
+                  f"{r['memory_s'] * 1e3:.2f} ms, collective "
+                  f"{r['collective_s'] * 1e3:.2f} ms ({r['dominant']}); "
+                  f"trace {c['t_trace_s']} s [{smi}]")
+        return ""
+
+    def phase():
+        with one_rank_mesh(torch) as mesh:
+            for part in (train, serve):
+                err = part(mesh)
+                torch.cuda.empty_cache()
+                if err:
+                    return err
+            # the untimed checks overlap the dry-run's host processes
+            finish = dryrun_cells(MESH_DRYRUN)
+            for part in (moe, psum, restore):
+                err = part(mesh)
+                torch.cuda.empty_cache()
+                if err:
+                    finish()
+                    return err
+        for part in (lambda: dryrun(finish), yardstick):
+            err = part()
+            if err:
+                return err
+        return ""
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        err, path_err = on_path("lm_mesh", phase, (),
                                 tuple(KERNEL_ENTRIES.values()))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -2649,18 +3163,30 @@ def main() -> int:
     report["training"] = training
 
     # ----------------------------------------------------- 10. LM serving
-    lm, err = check_lm(torch, on_path, smi)
+    carry: dict = {"lm": {}, "lm_train": {}}
+    lm, err = check_lm(torch, on_path, smi, carry["lm"])
     if err:
         return fail(f"LM serving: {err}")
     print(f"LM serving phase: {lm['seconds']:.1f} s")
     report["lm"] = lm
 
     # --------------------------------------------------- 11. LM training
-    lm_train, err = check_lm_train(torch, on_path, smi)
+    lm_train, err = check_lm_train(torch, on_path, smi, carry["lm_train"])
     if err:
         return fail(f"LM training: {err}")
     print(f"LM training phase: {lm_train['seconds']:.1f} s")
     report["lm_train"] = lm_train
+
+    # ----------------------------------------------- 12. the mesh path
+    # one dict holds what phases 10 and 11 handed on, so what phase 12
+    # pops is freed
+    lm_mesh, err = check_lm_mesh(torch, on_path, smi, lm, lm_train,
+                                 {**carry.pop("lm"), **carry.pop("lm_train")})
+    del carry
+    if err:
+        return fail(f"mesh path: {err}")
+    print(f"mesh phase: {lm_mesh['seconds']:.1f} s")
+    report["lm_mesh"] = lm_mesh
 
     # each kernel's launches are those of the first path that runs it: S, A
     # and C on the fused flush, B on the split flush, D on the kernel API
@@ -2681,6 +3207,7 @@ def main() -> int:
     print(json.dumps({"training": training}))
     print(json.dumps({"lm": lm}))
     print(json.dumps({"lm_train": lm_train}))
+    print(json.dumps({"lm_mesh": lm_mesh}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

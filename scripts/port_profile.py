@@ -4,6 +4,7 @@
     python3 scripts/port_profile.py [--flushes 3] [--head fused|split]
                                     [--calibrated] [--stream [FRAMES]]
                                     [--lm [STEPS]] [--train [STEPS]]
+                                    [--mesh [STEPS]]
 
 Builds the port's kernels, warms ``Detector.detect_batch`` (packed
 strategy) on the main path's workload as ``chip_smoke.main_path_workload``
@@ -51,6 +52,13 @@ in microbatches of 4): after two warm-up steps, ``STEPS`` (default 1)
 train steps untraced (host clock, synchronised), then traced: host wall
 time, device time by operation, device operations and the idle share.
 Writes ``chiprun_out/port_profile_train.json``.
+
+``--mesh`` traces the same step both ways, one after the other in one
+process: phase 11's one-device step, then ``chip_smoke.py``'s phase-12
+step through the mesh path (``chip_smoke.lm_train_workload`` with
+``make_rules`` of ``chip_smoke.one_rank_mesh``: DTensor parameters, ZeRO
+and sequence parallelism on a one-rank NCCL mesh), each as ``--train``
+traces it.  Writes ``chiprun_out/port_profile_mesh.json``.
 Needs a CUDA card; fails without one.
 """
 
@@ -78,6 +86,8 @@ def main() -> int:
                     metavar="STEPS")
     ap.add_argument("--train", type=int, nargs="?", const=1, default=0,
                     metavar="STEPS")
+    ap.add_argument("--mesh", type=int, nargs="?", const=1, default=0,
+                    metavar="STEPS")
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -98,6 +108,8 @@ def main() -> int:
         return profile_lm(torch, smi, args.lm)
     if args.train:
         return profile_train(torch, smi, args.train)
+    if args.mesh:
+        return profile_mesh(torch, smi, args.mesh)
     native.build_all()
     if args.stream:
         return profile_stream(torch, smi, args.stream)
@@ -340,20 +352,59 @@ def profile_lm(torch, smi: str, n_steps: int) -> int:
 def profile_train(torch, smi: str, n_steps: int) -> int:
     """``--train``: trace ``n_steps`` train steps of phase 11's LM
     training."""
+    out = train_trace(torch, smi, n_steps)
+    if out is None:
+        return 1
+    dest = ROOT / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    (dest / "port_profile_train.json").write_text(json.dumps(out, indent=1))
+    return 0
+
+
+def profile_mesh(torch, smi: str, n_steps: int) -> int:
+    """``--mesh``: phase 11's step, then phase 12's mesh step, traced."""
+    from chip_smoke import one_rank_mesh
+    from repro_torch.distributed.sharding import make_rules
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False      # as phases 11, 12
+    try:
+        one = train_trace(torch, smi, n_steps)
+        torch.cuda.empty_cache()
+        with one_rank_mesh(torch) as mesh:
+            mesh_out = train_trace(torch, smi, n_steps, make_rules(mesh))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if one is None or mesh_out is None:
+        return 1
+    dest = ROOT / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    (dest / "port_profile_mesh.json").write_text(json.dumps(
+        {"one_device": one, "mesh": mesh_out}, indent=1))
+    return 0
+
+
+def train_trace(torch, smi: str, n_steps: int, rules=None) -> dict | None:
+    """Trace ``n_steps`` steps of phase 11's training (through the mesh
+    path with ``rules``) after two warm-up steps and as many untraced;
+    prints and returns the report (None when the trace holds no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
     from chip_smoke import (LM_ARCH, LM_TRAIN_BATCH, LM_TRAIN_MICRO,
                             LM_TRAIN_SEQ, lm_train_workload)
-    model, state, batch_at, step = lm_train_workload(torch, "cuda")
+    model, state, batch_at, step = lm_train_workload(torch, "cuda",
+                                                     rules=rules)
+    label = "one device" if rules is None else "mesh (1 x 1, NCCL)"
     for i in range(2):                                   # warm-up
         state, _ = step(state, batch_at(i))
     batches = [batch_at(2 + i) for i in range(n_steps)]
     torch.cuda.synchronize()
-    walls = []
+    walls, cpus = [], []
     for b in batches:
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.process_time()
         state, _ = step(state, b)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+        cpus.append((time.process_time() - c0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -364,22 +415,27 @@ def profile_train(torch, smi: str, n_steps: int) -> int:
     events = device_events(prof)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 \
         / n_steps
-    out = {"card": smi, "arch": LM_ARCH, "batch": LM_TRAIN_BATCH,
-           "seq": LM_TRAIN_SEQ, "microbatch": LM_TRAIN_MICRO,
-           "remat": model.cfg.remat, "steps": n_steps,
-           "untraced_wall_ms": walls, "wall_ms": wall_ms,
+    out = {"card": smi, "arch": LM_ARCH, "path": label,
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+           "microbatch": LM_TRAIN_MICRO, "remat": model.cfg.remat,
+           "steps": n_steps, "untraced_wall_ms": walls,
+           "untraced_host_cpu_ms": cpus, "wall_ms": wall_ms,
            "device_ms": device_ms,
            "device_ops": sum(e.count for e in events) / n_steps,
            "idle_share": 1.0 - device_ms / wall_ms,
+           "untraced_idle_share": 1.0 - device_ms / statistics.median(walls),
            "by_category": by_category(events, n_steps),
            "top": [{"name": e.key, "calls": e.count / n_steps,
                     "device_ms": e.self_device_time_total / 1e3 / n_steps}
                    for e in events[:25]]}
-    print(f"train step ({LM_ARCH}, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, "
-          f"microbatch {LM_TRAIN_MICRO}, remat {model.cfg.remat}): wall "
-          f"{wall_ms:.1f} ms (untraced {[round(w, 1) for w in walls]}), "
-          f"device {device_ms:.1f} ms, {out['device_ops']:.0f} device "
-          f"operations, idle share {out['idle_share']:.3f} [{smi}]")
+    print(f"train step, {label} ({LM_ARCH}, {LM_TRAIN_BATCH} x "
+          f"{LM_TRAIN_SEQ}, microbatch {LM_TRAIN_MICRO}, remat "
+          f"{model.cfg.remat}): wall {wall_ms:.1f} ms (untraced "
+          f"{[round(w, 1) for w in walls]}, host CPU "
+          f"{[round(c, 1) for c in cpus]}), device {device_ms:.1f} ms, "
+          f"{out['device_ops']:.0f} device operations, idle share "
+          f"{out['idle_share']:.3f} (untraced "
+          f"{out['untraced_idle_share']:.3f}) [{smi}]")
     for name, c in out["by_category"].items():
         print(f"  {name}: {c['device_ms']:.1f} ms in {c['calls']:.0f} "
               f"calls")
@@ -389,11 +445,8 @@ def profile_train(torch, smi: str, n_steps: int) -> int:
     if not events:
         print("port_profile: the trace holds no device time",
               file=sys.stderr)
-        return 1
-    dest = ROOT / "chiprun_out"
-    dest.mkdir(exist_ok=True)
-    (dest / "port_profile_train.json").write_text(json.dumps(out, indent=1))
-    return 0
+        return None
+    return out
 
 
 # device operations by kernel name, first match wins: cuBLAS / CUTLASS

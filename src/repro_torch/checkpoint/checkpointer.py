@@ -19,18 +19,30 @@ reference's own restore cannot cast such a file and raises.)  A float32
 leaf restored into a bf16 template rounds to nearest even, as the
 reference's cast does.
 
-The reference's elastic ``shardings=`` restore comes with the
-distributed slice.
+Elasticity: leaves are saved whole and placed on load, so a checkpoint
+written on one mesh restores onto another.  A DTensor leaf is never
+gathered: rank 0 lays out each leaf's file, every rank writes its own
+shard into its place in the file (one rank per set of replicas), and
+all meet at barriers before rank 0 publishes.  ``restore_checkpoint(...,
+shardings=)`` gives each leaf its ``(mesh, placements)``: each rank reads
+only its own shard of the file (a memory map).  So no rank holds a whole
+leaf, on the card or the host; the ranks share the checkpoint's file
+system.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from ..device import resolve_device
 
@@ -91,7 +103,7 @@ def _unflatten(like, leaves):
 
 
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
-    """(array to save, its manifest dtype)."""
+    """(array to save, its manifest dtype) of a plain leaf."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -102,35 +114,109 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _file_dtype(dtype: torch.dtype) -> tuple[np.dtype, str]:
+    """(the file's numpy dtype, the manifest's name) of a tensor dtype."""
+    if dtype == torch.bfloat16:
+        return np.dtype("V2"), "bfloat16"
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    return np_dtype, str(np_dtype)
+
+
+def _shard_region(t: DTensor) -> tuple | None:
+    """The index of this rank's shard in the whole leaf, or None when
+    another rank writes the same shard (this one is not the first of its
+    replicas)."""
+    coord = t.device_mesh.get_coordinate()
+    if any(c and not pl.is_shard() for c, pl in zip(coord, t.placements)):
+        return None
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return tuple(slice(o, o + n) for o, n in zip(offset, shape))
+
+
+def _write_shard(path: str, t: DTensor) -> None:
+    """This rank's shard of ``t`` into its place in the laid-out file, one
+    write per contiguous run (a run: the shard's slice of the last dim it
+    does not cover whole, times the whole dims after it)."""
+    region = _shard_region(t)
+    if region is None or t.to_local().numel() == 0:
+        return
+    local = t.to_local().detach().cpu().contiguous()
+    if local.dtype == torch.bfloat16:
+        local = local.view(torch.int16)
+    arr = local.numpy()
+    shape = tuple(t.shape)
+    start = np.load(path, mmap_mode="r").offset
+    part = [d for d, (sl, n) in enumerate(zip(region, shape))
+            if sl.stop - sl.start != n]
+    with open(path, "r+b") as f:
+        if not part:
+            f.seek(start)
+            f.write(arr.tobytes())
+            return
+        k = part[-1]
+        inner = math.prod(shape[k + 1:])
+        runs = arr.reshape(-1, arr.shape[k] * inner)
+        for row, idx in zip(runs, np.ndindex(*arr.shape[:k])):
+            at = region[k].start * inner + sum(
+                (region[d].start + i) * math.prod(shape[d + 1:])
+                for d, i in enumerate(idx))
+            f.seek(start + at * arr.itemsize)
+            f.write(row.tobytes())
+
+
 def save_checkpoint(directory: str, step: int, tree, *, metadata=None,
                     keep: int = 3) -> str:
     """Write ``tree`` atomically; prune to the newest ``keep``
-    checkpoints.  Returns the checkpoint's directory."""
-    os.makedirs(directory, exist_ok=True)
+    checkpoints.  Returns the checkpoint's directory.  With DTensor
+    leaves every rank must call it: each writes its shards, rank 0 the
+    rest, and all ranks leave together."""
+    leaves = _flatten(tree)
+    sharded = any(isinstance(t, DTensor) for t in leaves)
+    writer = not sharded or dist.get_rank() == 0
     final = os.path.join(directory, f"step_{step:010d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    leaves = _flatten(tree)
+    paths = [os.path.join(tmp, f"leaf_{i}.npy") for i in range(len(leaves))]
     spec = []
-    for i, leaf in enumerate(leaves):
+    if writer:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    for path, leaf in zip(paths, leaves):
+        if isinstance(leaf, DTensor):
+            np_dtype, dtype = _file_dtype(leaf.dtype)
+            if writer:          # the file laid out, its shards to come
+                np.lib.format.open_memmap(path, mode="w+", dtype=np_dtype,
+                                          shape=tuple(leaf.shape)).flush()
+            spec.append({"shape": list(leaf.shape), "dtype": dtype})
+            continue
         arr, dtype = _to_numpy(leaf)
-        np.save(os.path.join(tmp, f"leaf_{i}.npy"), arr)
+        if writer:
+            np.save(path, arr)
         spec.append({"shape": list(arr.shape), "dtype": dtype})
-    manifest = {
-        "step": step,
-        "n_leaves": len(leaves),
-        "treedef": _describe(tree),
-        "leaves": spec,
-        "metadata": metadata or {},
-    }
-    with open(os.path.join(tmp, _MANIFEST), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)                      # atomic publish
-    _prune(directory, keep)
+    if sharded:
+        dist.barrier()                 # every file laid out
+        for path, leaf in zip(paths, leaves):
+            if isinstance(leaf, DTensor):
+                _write_shard(path, leaf)
+        dist.barrier()                 # every shard written
+    if writer:
+        manifest = {
+            "step": step,
+            "n_leaves": len(leaves),
+            "treedef": _describe(tree),
+            "leaves": spec,
+            "metadata": metadata or {},
+        }
+        with open(os.path.join(tmp, _MANIFEST), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)                      # atomic publish
+        _prune(directory, keep)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -157,19 +243,44 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _load_leaf(path: str, dtype: str) -> torch.Tensor:
-    arr = np.load(path)
+def _load_leaf(path: str, dtype: str, sharding=None) -> torch.Tensor:
+    """The leaf's file as a host tensor; with ``(mesh, placements)`` only
+    this rank's shard of it (read through a memory map)."""
+    arr = np.load(path, mmap_mode="r" if sharding is not None else None)
+    if sharding is not None:
+        mesh, pl = sharding
+        shape, offset = compute_local_shape_and_global_offset(
+            arr.shape, mesh, pl)
+        arr = np.ascontiguousarray(arr[tuple(
+            slice(o, o + n) for o, n in zip(offset, shape))])
     if dtype == "bfloat16":              # two-byte void records: the bits
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
 
 
+def _leaf_shardings(like, shardings) -> list:
+    """``shardings``' entry for each leaf of ``like``, in flatten order (an
+    entry is ``(mesh, placements)`` or None)."""
+    kids = _children(like)
+    if kids is None:
+        return [shardings]
+    if isinstance(like, dict):
+        return [s for k in sorted(like)
+                for s in _leaf_shardings(like[k], shardings[k])]
+    return [s for i, k in enumerate(kids)
+            for s in _leaf_shardings(k, shardings[i])]
+
+
 def restore_checkpoint(directory: str, like, *, step: int | None = None,
-                       device=None):
+                       shardings=None, device=None):
     """Restore into the structure of ``like`` (a tree of tensors: the
     template's shapes and dtypes) on ``device`` (the card unless the
-    caller names one).  Returns (tree, step, metadata)."""
-    dev = resolve_device(device)
+    caller names one; with shardings, each mesh's device).
+    ``shardings``: a matching tree of ``(mesh, placements)`` (or None for
+    a leaf restored whole), as ``distributed.sharding.shardings_for`` /
+    ``shardings_of`` give; such leaves come back as DTensors, each rank
+    reading only its shard.  Returns (tree, step, metadata)."""
+    dev = resolve_device(device) if shardings is None else None
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -182,11 +293,37 @@ def restore_checkpoint(directory: str, like, *, step: int | None = None,
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, template has "
             f"{len(leaves)}: incompatible structures")
+    placed = (_leaf_shardings(like, shardings) if shardings is not None
+              else [None] * len(leaves))
     out = []
-    for i, (tmpl, spec) in enumerate(zip(leaves, manifest["leaves"])):
-        t = _load_leaf(os.path.join(path, f"leaf_{i}.npy"), spec["dtype"])
-        if tuple(t.shape) != tuple(tmpl.shape):
-            raise ValueError(f"leaf {i}: checkpoint shape {tuple(t.shape)} "
-                             f"!= template {tuple(tmpl.shape)}")
-        out.append(t.to(tmpl.dtype).to(dev))
+    for i, (tmpl, spec, shd) in enumerate(zip(leaves, manifest["leaves"],
+                                              placed)):
+        if tuple(spec["shape"]) != tuple(tmpl.shape):
+            raise ValueError(f"leaf {i}: checkpoint shape "
+                             f"{tuple(spec['shape'])} != template "
+                             f"{tuple(tmpl.shape)}")
+        t = _load_leaf(os.path.join(path, f"leaf_{i}.npy"), spec["dtype"],
+                       shd).to(tmpl.dtype)
+        if shd is None:
+            out.append(t.to(dev if dev is not None else tmpl.device))
+            continue
+        mesh, pl = shd
+        t = t.to(_mesh_device(mesh))
+        out.append(DTensor.from_local(t, mesh, pl, run_check=False,
+                                      shape=torch.Size(spec["shape"]),
+                                      stride=_contiguous(spec["shape"])))
     return _unflatten(like, iter(out)), step, manifest["metadata"]
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _contiguous(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))

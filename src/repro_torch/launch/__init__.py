@@ -1,3 +1,3 @@
-# Launch layer on one device: the training driver (train.py).  The
-# reference's production meshes, dry-run cell builders and roofline
-# analysis come with the distributed slice.
+# Launch layer: production meshes, dry-run cells, roofline analysis,
+# the training loop.  NOTE: dryrun.py starts a fake process
+# group at import: import it only as a script entry point.

@@ -1,10 +1,13 @@
-"""Training driver on one device: config -> model -> train step ->
+"""Training loop: config -> (mesh ->) model -> train step ->
 checkpointed loop.
 
 Atomic checkpoint and restart, deterministic resumable data, a straggler
 detector fed the step times, optional int8 gradient compression, a
-restart-bounded driver.  The reference's ``mesh=`` comes with the
-distributed slice.
+restart-bounded loop.  ``train_loop(mesh=)`` trains on a device mesh
+(``launch.mesh``) over the process group the caller started: the model
+and state sharded by ``make_rules(mesh)``, every rank building the same
+global batch and keeping its dp shard, checkpoints gathered on save and
+restored shard by shard.
 
 On the CPU (the smoke config of an architecture):
 
@@ -18,12 +21,15 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..configs import get_config, get_smoke_config
 from ..data import SyntheticTokens
 from ..distributed.compression import make_compressor
 from ..distributed.fault import StragglerDetector, run_with_restarts
+from ..distributed.sharding import (batch_pspecs, distribute, make_rules,
+                                    shardings_of)
 from ..models import Model
 from ..train import init_train_state, make_train_step
 
@@ -31,14 +37,19 @@ __all__ = ["train_loop", "main"]
 
 
 def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt: str | None,
-               lr: float = 3e-4, microbatch: int = 0, compress: bool = False,
-               ckpt_every: int = 50, log_every: int = 10, seed: int = 0,
+               lr: float = 3e-4, microbatch: int = 0, mesh=None,
+               compress: bool = False, ckpt_every: int = 50,
+               log_every: int = 10, seed: int = 0,
                fail_at: int | None = None, device=None) -> dict:
     """Train ``steps`` steps from the latest checkpoint in ``ckpt`` (or
     from seed ``seed``) and return the last step's metrics as floats.
+    ``mesh``: a ``DeviceMesh`` (every rank of it calls this).
     ``fail_at``: raise ``RuntimeError`` at that step (fault-tolerance
-    tests).  ``device``: the card unless the caller names one."""
-    model = Model(cfg, device)
+    tests).  ``device``: the card unless the caller names one (the
+    mesh's device type with a mesh)."""
+    rules = make_rules(mesh) if mesh is not None else None
+    model = Model(cfg, device, rules)
+    loud = mesh is None or dist.get_rank() == 0      # one rank logs
     pipe = SyntheticTokens(cfg.vocab_size, batch, seq, seed=seed)
     compressor = make_compressor()[0] if compress else None
     step_fn = make_train_step(
@@ -49,9 +60,14 @@ def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt: str | None,
         model, torch.Generator(device=model.device).manual_seed(seed))
     start = 0
     if ckpt and latest_step(ckpt) is not None:
-        state, start, _ = restore_checkpoint(ckpt, state,
-                                             device=model.device)
-        print(f"restored step {start} from {ckpt}")
+        if mesh is None:
+            state, start, _ = restore_checkpoint(ckpt, state,
+                                                 device=model.device)
+        else:
+            state, start, _ = restore_checkpoint(
+                ckpt, state, shardings=shardings_of(state))
+        if loud:
+            print(f"restored step {start} from {ckpt}")
 
     det = StragglerDetector(n_pods=1)
     metrics: dict = {}
@@ -61,6 +77,8 @@ def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt: str | None,
             raise RuntimeError(f"injected failure at step {step}")
         batch_t = {k: torch.from_numpy(v).to(model.device)
                    for k, v in pipe(step).items()}
+        if mesh is not None:
+            batch_t = distribute(batch_t, batch_pspecs(batch_t, rules), mesh)
         state, metrics = step_fn(state, batch_t)
         if ckpt and (step + 1) % ckpt_every == 0:
             save_checkpoint(ckpt, step + 1, state,
@@ -69,6 +87,7 @@ def train_loop(*, cfg, steps: int, batch: int, seq: int, ckpt: str | None,
             dt = time.time() - t_last
             t_last = time.time()
             det.update([dt / log_every])
+        if (step + 1) % log_every == 0 and loud:
             print(f"step {step + 1}/{steps} loss={float(metrics['loss']):.4f}"
                   f" acc={float(metrics['accuracy']):.3f}"
                   f" gnorm={float(metrics['grad_norm']):.2f}"

@@ -390,7 +390,14 @@ def init_gated_mlp(rng: ParamRng, d_model: int, d_ff: int, dtype) -> dict:
             "wo": init_dense(rng, d_ff, d_model, dtype, scale=d_ff ** -0.5)}
 
 
-def gated_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def gated_mlp(p: dict, x: torch.Tensor, act: str = "silu",
+              rules=None) -> torch.Tensor:
     g = dense(p["wg"], x)
     h = dense(p["wi"], x)
+    if rules is not None:
+        # the reference's pins of the hidden activation's TP layout (so
+        # its cotangent keeps it too, and the backward's products stay
+        # tensor-parallel)
+        g = rules.act(g, "dp", None, "tp")
+        h = rules.act(h, "dp", None, "tp")
     return dense(p["wo"], activation(g, act) * h)

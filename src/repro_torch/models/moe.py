@@ -1,9 +1,16 @@
-"""Top-k routed mixture-of-experts on one device.
+"""Top-k routed mixture-of-experts with expert parallelism.
 
-The reference's ``moe_ffn`` with ``axis_name=None`` and ``axis_data=None``:
-every expert is local.  Tokens pick their ``top_k`` experts from a float32
-router; each expert takes at most ``moe_capacity`` tokens, earliest first
-(capacity drops); outputs are scatter-added back per token.
+The reference's ``moe_ffn``.  Tokens pick their ``top_k`` experts from a
+float32 router; each expert takes at most ``moe_capacity`` tokens,
+earliest first (capacity drops); outputs are scatter-added back per
+token.  With ``axis_name=None`` every expert is local (one device).
+Under a mesh (``shard_map`` in ``transformer.py``) ``axis_name`` is the
+expert axis (``(mesh, "model")``): tokens arrive replicated over it, each
+rank routes every token and dispatches those routed to its own experts,
+and one ``psum`` over the axis combines the routed outputs.
+``axis_data`` (decode's 2D layout) also splits the experts' hidden dim
+over the data axes: the first products are partial contractions summed
+over them, and the output is that rank's slice of the hidden dim.
 
 ``lax.top_k`` orders equal values by index; the port takes the same
 order from a stable descending sort, so routing and dispatch (the
@@ -15,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import axis_index, psum
 from .layers import ParamRng, activation
 
 __all__ = ["init_moe", "moe_ffn", "moe_capacity"]
@@ -48,17 +56,23 @@ def _top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_ffn(p: dict, x: torch.Tensor, cfg, *, act: str = "silu"):
+def moe_ffn(p: dict, x: torch.Tensor, cfg, *, axis_name=None,
+            act: str = "silu", axis_data=None):
     """x: (..., T, D), flattened to (T, D) internally.  Returns (y,
-    aux_loss)."""
+    aux_loss).  ``axis_name`` / ``axis_data``: see the module docstring
+    (an axis is ``(mesh, names)``); p's expert weights are then this
+    rank's shards."""
     mo = cfg.moe
     lead = x.shape[:-1]
     D = x.shape[-1]
     xt = x.reshape(-1, D)
     T = xt.shape[0]
     E = mo.n_experts
+    E_loc = p["wi"].shape[0]
+    n_shards = E // E_loc
+    e0 = axis_index(axis_name) * E_loc if axis_name else 0
 
-    # ---- routing
+    # ---- routing (replicated compute on every expert rank)
     logits = xt.float() @ p["router"]["w"]                    # (T, E) fp32
     probs = torch.softmax(logits, -1)
     top_p, top_i = _top_k(probs, mo.top_k)                    # (T, k)
@@ -72,25 +86,39 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg, *, act: str = "silu"):
     P_e = probs.mean(0)
     aux = E * torch.sum(f_e * P_e) * mo.aux_loss_coef
 
-    # ---- capacity-bounded dispatch
-    C = moe_capacity(cfg, T)
-    w_te = torch.einsum("tk,tke->te", top_p, one_hot)         # (T, E)
+    # ---- capacity-bounded dispatch for the local experts
+    C = moe_capacity(cfg, T, n_shards)
+    local_oh = one_hot[..., e0:e0 + E_loc]                    # (T, k, E_loc)
+    w_te = torch.einsum("tk,tke->te", top_p, local_oh)        # (T, E_loc)
     routed = w_te > 0
     # earliest-token priority: value (T - t) picks the first C per expert
     order = (T - torch.arange(T, device=x.device)).float()[None, :]
-    prio = torch.where(routed.T, order, 0.0)                  # (E, T)
-    val, idx = _top_k(prio, min(C, T))                        # (E, C)
+    prio = torch.where(routed.T, order, 0.0)                  # (E_loc, T)
+    val, idx = _top_k(prio, min(C, T))                        # (E_loc, C)
     valid = val > 0
-    gather_w = torch.take_along_dim(w_te.T, idx, 1) * valid  # (E, C)
+    gather_w = torch.take_along_dim(w_te.T, idx, 1) * valid  # (E_loc, C)
 
-    xs = xt[idx.reshape(-1)].reshape(E, -1, D) \
+    xs = xt[idx.reshape(-1)].reshape(E_loc, -1, D) \
         * valid[..., None].to(xt.dtype)
-    h = torch.einsum("ecd,edf->ecf", xs, p["wi"].to(xt.dtype))
-    g = torch.einsum("ecd,edf->ecf", xs, p["wg"].to(xt.dtype))
+    if axis_data:
+        D_loc = p["wi"].shape[1]
+        d0 = axis_index(axis_data) * D_loc
+        xs_l = xs[..., d0:d0 + D_loc]
+        # complete the D contraction over the data axes
+        h = psum(torch.einsum("ecd,edf->ecf", xs_l, p["wi"].to(xt.dtype)),
+                 axis_data)
+        g = psum(torch.einsum("ecd,edf->ecf", xs_l, p["wg"].to(xt.dtype)),
+                 axis_data)
+    else:
+        h = torch.einsum("ecd,edf->ecf", xs, p["wi"].to(xt.dtype))
+        g = torch.einsum("ecd,edf->ecf", xs, p["wg"].to(xt.dtype))
     eo = torch.einsum("ecf,efd->ecd", activation(g, act) * h,
                       p["wo"].to(xt.dtype))
     eo = eo * gather_w[..., None].to(eo.dtype)
+    D_out = eo.shape[-1]                     # D (1D path) or D_loc (2D)
     # invalid slots scatter a zero row at their index, as in the reference
-    y = torch.zeros((T, D), dtype=eo.dtype, device=x.device).index_add_(
-        0, idx.reshape(-1), eo.reshape(-1, D))
-    return y.reshape(*lead, D), aux
+    y = torch.zeros((T, D_out), dtype=eo.dtype, device=x.device).index_add_(
+        0, idx.reshape(-1), eo.reshape(-1, D_out))
+    if axis_name:
+        y = psum(y, axis_name)
+    return y.reshape(*lead, D_out), aux

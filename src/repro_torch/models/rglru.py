@@ -14,18 +14,21 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import GradSpec, shard_map
+from .attn import _tp
 from .layers import ParamRng, activation, init_dense, dense
 
 __all__ = ["init_rglru", "rglru_block", "init_rglru_cache"]
 
 
-def _block_linear(w: torch.Tensor, x: torch.Tensor,
-                  n_heads: int) -> torch.Tensor:
+def _block_linear(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Block-diagonal (H, w, w) map over (B, S, W=H·w)."""
     B, S, W = x.shape
+    n_heads = w.shape[0]
     xh = x.reshape(B, S, n_heads, W // n_heads)
     y = torch.einsum("bshi,hij->bshj", xh, w.to(x.dtype))
     return y.reshape(x.shape)
@@ -36,9 +39,11 @@ def init_rglru(rng: ParamRng, cfg, dtype) -> dict:
     D, W, H = cfg.d_model, g.width, cfg.n_heads
     wh = W // H
     std = wh ** -0.5
-    # softplus^-1 so that a^c lies in [0.9, 0.999]
-    lin = torch.linspace(0.9, 0.999, W, dtype=torch.float32)
-    lam = torch.log(torch.expm1(-torch.log(lin) / g.c))
+    if rng.meta:         # shapes only (so also under a fake tensor mode)
+        lam = np.empty(W, np.float32)
+    else:                # softplus^-1 so that a^c lies in [0.9, 0.999]
+        lin = torch.linspace(0.9, 0.999, W, dtype=torch.float32)
+        lam = torch.log(torch.expm1(-torch.log(lin) / g.c)).numpy()
     return {
         "wy": init_dense(rng, D, W, dtype),            # gelu gate branch
         "wx": init_dense(rng, D, W, dtype),            # recurrence branch
@@ -48,7 +53,7 @@ def init_rglru(rng: ParamRng, cfg, dtype) -> dict:
                        "b": rng.full((W,), 0.0, dtype)},
                  "i": {"blocks": rng.normal((H, wh, wh), std, dtype),
                        "b": rng.full((W,), 0.0, dtype)}},
-        "lam": rng.tensor(lam.numpy(), torch.float32),   # Λ (W,) fp32
+        "lam": rng.tensor(lam, torch.float32),           # Λ (W,) fp32
         "out_proj": init_dense(rng, W, D, dtype, scale=W ** -0.5),
     }
 
@@ -94,21 +99,17 @@ def _rglru_scan(log_a: torch.Tensor, bx: torch.Tensor, h0=None):
     return b
 
 
-def rglru_block(p: dict, x: torch.Tensor, cfg, *, cache=None,
-                cache_len=None):
-    """x: (B, S, D) -> (out, new_cache).  cache = {'h', 'conv'}."""
+def _recurrence(p: dict, u: torch.Tensor, cfg, cache, decode: bool):
+    """The conv, the gates and the RG-LRU over ``u`` (B, S, W): (h (B, S,
+    W) fp32, new cache or None).  ``p``: the block's ``conv``, ``gate``
+    and ``lam``; on a mesh each rank's channels (whole heads)."""
     g = cfg.rglru
-    S = x.shape[1]
-    decode = cache is not None and S == 1 and cache_len is not None
-
-    y = activation(dense(p["wy"], x), "gelu")             # (B,S,W)
-    u = dense(p["wx"], x)
     u, conv_state = _causal_conv(p["conv"], u,
                                  cache["conv"] if decode else None)
 
-    r = _block_linear(p["gate"]["r"]["blocks"], u, cfg.n_heads) \
+    r = _block_linear(p["gate"]["r"]["blocks"], u) \
         + p["gate"]["r"]["b"].to(u.dtype)
-    i = _block_linear(p["gate"]["i"]["blocks"], u, cfg.n_heads) \
+    i = _block_linear(p["gate"]["i"]["blocks"], u) \
         + p["gate"]["i"]["b"].to(u.dtype)
     decay = -g.c * F.softplus(p["lam"])                   # (W,) fp32, < 0
     log_a = decay * torch.sigmoid(r.float())               # (B,S,W)
@@ -119,17 +120,72 @@ def rglru_block(p: dict, x: torch.Tensor, cfg, *, cache=None,
     if decode:
         h_prev = cache["h"].float()                       # (B, W)
         h = torch.exp(log_a[:, 0]) * h_prev + bx[:, 0]
-        new_cache = {"h": h.to(cache["h"].dtype), "conv": conv_state}
-        hs = h[:, None]
+        return h[:, None], {"h": h.to(cache["h"].dtype), "conv": conv_state}
+    h0 = cache["h"].float() if cache is not None else None
+    hs = _rglru_scan(log_a, bx, h0)
+    new_cache = None
+    if cache is not None:        # prefill: persist the final state
+        new_cache = {"h": hs[:, -1].to(cache["h"].dtype),
+                     "conv": conv_state}
+    return hs, new_cache
+
+
+def rglru_block(p: dict, x: torch.Tensor, cfg, *, cache=None,
+                cache_len=None, rules=None):
+    """x: (B, S, D) -> (out, new_cache).  cache = {'h', 'conv'}.
+
+    ``rules`` with a mesh: ``x``, the weights and the cache are DTensors;
+    the projections keep their specs' layout (the channels over tp) and
+    the recurrence runs on each rank's channels (``_rglru_mesh``)."""
+    S = x.shape[1]
+    decode = cache is not None and S == 1 and cache_len is not None
+
+    y = activation(dense(p["wy"], x), "gelu")             # (B,S,W)
+    u = dense(p["wx"], x)
+    core = {k: p[k] for k in ("conv", "gate", "lam")}
+    if rules is not None:
+        y, hs, new_cache = _rglru_mesh(core, y, u, cfg, cache, decode, rules)
     else:
-        h0 = cache["h"].float() if cache is not None else None
-        hs = _rglru_scan(log_a, bx, h0)
-        new_cache = None
-        if cache is not None:        # prefill: persist the final state
-            new_cache = {"h": hs[:, -1].to(cache["h"].dtype),
-                         "conv": conv_state}
+        hs, new_cache = _recurrence(core, u, cfg, cache, decode)
     out = dense(p["out_proj"], (y.float() * hs).to(x.dtype))
     return out, new_cache
+
+
+def _rglru_mesh(p, y, u, cfg, cache, decode, rules):
+    """The recurrence under ``shard_map``: batch over dp and the channels
+    over tp in whole heads, as the specs place the gates' blocks, ``lam``,
+    the conv and the cache (the gates are block-diagonal per head, so
+    channels split only where the heads divide tp; else they stay whole
+    on every tp rank).  Returns (y, h, new cache) with y and h in the
+    channels' layout, for the row-parallel output projection.  Each rank's
+    weight gradients are partial sums over dp."""
+    ch = "tp" if cfg.n_heads % _tp(rules)[0] == 0 else None
+    y = rules.act(y, "dp", None, ch)
+    u = rules.act(u, "dp", None, ch)
+    c = rules.spec(ch)
+    wspec = {"conv": {"w": rules.spec(ch, None), "b": c},
+             "gate": {n: {"blocks": rules.spec(ch, None, None), "b": c}
+                      for n in ("r", "i")},
+             "lam": c}
+    rows = rules.spec("dp", None, ch)
+    cspec = ({"h": rules.spec("dp", ch), "conv": rules.spec("dp", None, ch)}
+             if cache is not None else None)
+    wgrad = {"conv": {k: GradSpec(v, rules.dp)
+                      for k, v in wspec["conv"].items()},
+             "gate": {n: {k: GradSpec(v, rules.dp) for k, v in d.items()}
+                      for n, d in wspec["gate"].items()},
+             "lam": GradSpec(c, rules.dp)}
+
+    def local(pp, ul, cl):
+        return _recurrence(pp, ul, cfg, cl, decode)
+
+    hs, new_cache = shard_map(local, rules.mesh, (wspec, rows, cspec),
+                              (rows, cspec), (wgrad, rows, cspec))(
+        p, u, cache)
+    if new_cache is not None:
+        new_cache = {k: t.redistribute(rules.mesh, cache[k].placements)
+                     for k, t in new_cache.items()}
+    return y, hs, new_cache
 
 
 def init_rglru_cache(cfg, batch: int, dtype, device) -> dict:

@@ -16,9 +16,17 @@ One ``Model`` covers all ten assigned architectures, as the reference's:
   ``decode_step`` (one token + cache update).  Caches are not written in
   place: each step returns a new one.
 
-The reference's mesh paths (sharded groups, the MoE ``shard_map``, the
-2D decode layout, sequence parallelism) wait for the distributed slice;
-this ``Model`` runs on one device.
+Under a mesh (``rules`` from ``distributed.sharding.make_rules``) the
+parameters and caches are DTensors placed by the reference's specs, and
+the walk takes the reference's mesh layout: activations pinned by
+``rules.act`` (a redistribute), each scan group's sliced parameters
+pinned to one group's specs (``_pin_group``), Megatron sequence
+parallelism between blocks in the forward (``sp``), decode's 2D layout
+(the residual's hidden dim over dp, ``decode2d``), the MoE experts and
+the blockwise flash under ``shard_map``.  MLA and the recurrent mixers
+(RG-LRU, SSD) keep their projections in their specs' layout and run
+their attention or scan on each rank's heads or channels under
+``shard_map``.  Without a mesh the one-device code runs unchanged.
 """
 
 from __future__ import annotations
@@ -30,6 +38,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed.collectives import axis_index, pmean, psum
+from ..distributed.sharding import (P, GradSpec, ShardingRules, cache_pspecs,
+                                    distribute, make_rules, param_pspecs,
+                                    placements, shard_map)
+from ..tree import tree_leaves, tree_map, tree_unzip
 from . import attn as attn_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
@@ -38,41 +51,8 @@ from . import ssd as ssd_mod
 from .layers import (ParamRng, init_norm, apply_norm, init_gated_mlp,
                      gated_mlp, init_dense, mm32)
 
-__all__ = ["Model", "param_count", "params_from_reference",
+__all__ = ["Model", "build_model", "param_count", "params_from_reference",
            "layer_groups", "tree_map", "tree_leaves", "tree_unzip"]
-
-
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts / lists of equal structure."""
-    t = trees[0]
-    if isinstance(t, dict):
-        if any(x.keys() != t.keys() for x in trees[1:]):
-            raise ValueError(f"dict keys differ: {[list(x) for x in trees]}")
-        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
-    if isinstance(t, (list, tuple)):
-        if any(len(x) != len(t) for x in trees[1:]):
-            raise ValueError("list lengths differ")
-        return [tree_map(fn, *xs) for xs in zip(*trees)]
-    return fn(*trees)
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of nested dicts / lists, in ``tree_map``'s order."""
-    out: list = []
-    tree_map(out.append, tree)
-    return out
-
-
-def tree_unzip(tree, n: int) -> tuple:
-    """``n`` trees from the output of ``tree_map`` over a function that
-    returns ``n``-tuples (the tuples are its leaves)."""
-    if isinstance(tree, tuple):
-        return tree
-    if isinstance(tree, dict):
-        parts = {k: tree_unzip(v, n) for k, v in tree.items()}
-        return tuple({k: p[i] for k, p in parts.items()} for i in range(n))
-    parts = [tree_unzip(v, n) for v in tree]
-    return tuple([p[i] for p in parts] for i in range(n))
 
 
 # ----------------------------------------------------------------- grouping
@@ -139,19 +119,48 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 class Model:
     """Functional model: ``init`` -> params dict; ``forward`` / ``prefill``
     / ``decode_step`` over it.  ``device=None`` is the card (an error
-    without one); name ``"cpu"`` to run on the host."""
+    without one); name ``"cpu"`` to run on the host.  ``rules`` with a
+    mesh: the mesh path (its device type unless ``device`` names one)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 rules: ShardingRules | None = None):
         self.cfg = cfg
+        self.rules = rules or make_rules(None)
+        mesh = self.rules.mesh
+        if device is None and mesh is not None:
+            device = mesh.device_type
         self.device = resolve_device(device)
         self.pre, self.sb, self.n_scan, self.post = layer_groups(cfg)
         self.dtype = getattr(torch, cfg.param_dtype)
         self.cdtype = getattr(torch, cfg.compute_dtype)
+        self._group_specs_cache = None
+
+    def _group_specs(self):
+        """Specs of ONE scan group's (unstacked) params."""
+        if self._group_specs_cache is None:
+            rng = ParamRng("meta")
+            shapes = [init_block(rng, self.cfg, kind, self.cfg.moe is not None,
+                                 self.dtype) for kind in self.sb]
+            self._group_specs_cache = param_pspecs(shapes, self.rules)
+        return self._group_specs_cache
+
+    def _pin_group(self, gp):
+        """Re-place a scan group's sliced params by one group's specs, so
+        the ZeRO all-gather stays per group."""
+        if self.rules.mesh is None:
+            return gp
+        mesh = self.rules.mesh
+        return tree_map(
+            lambda t, s: t.redistribute(mesh, placements(s, mesh, t.dim())),
+            gp, self._group_specs())
 
     # ------------------------------------------------------------- params
     def init(self, generator: torch.Generator | None = None) -> dict:
         """Parameters drawn from ``generator`` (on the model's device;
-        seed 0 when None): the reference's shapes, dtypes and scales."""
+        seed 0 when None): the reference's shapes, dtypes and scales.
+        Under a mesh every leaf is drawn whole, as on one device, then
+        placed by ``param_pspecs`` (each rank holds the whole tree for a
+        moment: the parameters' bytes once, per rank)."""
         cfg = self.cfg
         dt = self.dtype
         rng = ParamRng(self.device, generator)
@@ -177,6 +186,9 @@ class Model:
         if self.post:
             params["postlude"] = [init_block(rng, cfg, kind, False, dt)
                                   for kind in self.post]
+        if self.rules.mesh is not None and not rng.meta:
+            params = distribute(params, param_pspecs(params, self.rules),
+                                self.rules.mesh)
         return params
 
     # -------------------------------------------------------------- cache
@@ -194,61 +206,168 @@ class Model:
             cache["scan"] = [blocks(self.sb) for _ in range(self.n_scan)]
         if self.post:
             cache["postlude"] = blocks(self.post)
+        if self.rules.mesh is not None:
+            cache = distribute(cache, cache_pspecs(cache, cfg, self.rules),
+                               self.rules.mesh)
         return cache
 
     # -------------------------------------------------------------- apply
-    def _block(self, p, x, kind: str, cache, cache_len, moe_layer: bool):
-        cfg = self.cfg
+    def _block(self, p, x, kind: str, cache, cache_len, moe_layer: bool,
+               sp: bool = False):
+        cfg, r = self.cfg, self.rules
+        mesh = r.mesh is not None
+        seq_ax = "tp" if sp else None
+        # decode's weight-stationary 2D layout: the residual's hidden dim
+        # over the dp axes, so every product contracts a sharded dim
+        # against the (d, m)-sharded weights
+        decode2d = (mesh and cache is not None and x.shape[1] == 1
+                    and cache_len is not None)
+
+        def res_act(y):
+            if decode2d:
+                return r.act(y, None, None, "dp")
+            return r.act(y, "dp", seq_ax, None)
+
         h = apply_norm(cfg.norm, p["norm1"], x)
-        if kind == "attn":
-            if cfg.mla is not None:
-                mix, new_cache = mla_mod.mla_block(
-                    p["mixer"], h, cfg, cache=cache, cache_len=cache_len)
-            else:
-                window = cfg.rglru.window if cfg.rglru is not None else None
-                mix, new_cache = attn_mod.attn_block(
-                    p["mixer"], h, cfg, window=window, cache=cache,
-                    cache_len=cache_len)
-        elif kind == "rglru":
-            mix, new_cache = rglru_mod.rglru_block(
-                p["mixer"], h, cfg, cache=cache, cache_len=cache_len)
-        elif kind == "ssd":
-            mix, new_cache = ssd_mod.ssd_block(
-                p["mixer"], h, cfg, cache=cache, cache_len=cache_len)
+        if sp:
+            # Megatron-SP: gather the sequence before the TP projections
+            h = r.act(h, "dp", None, None)
+        if kind == "attn" and cfg.mla is None:
+            window = cfg.rglru.window if cfg.rglru is not None else None
+            mix, new_cache = attn_mod.attn_block(
+                p["mixer"], h, cfg, window=window, cache=cache,
+                cache_len=cache_len, rules=r if mesh else None)
+        elif kind in ("attn", "rglru", "ssd"):
+            block = {"attn": mla_mod.mla_block, "rglru": rglru_mod.rglru_block,
+                     "ssd": ssd_mod.ssd_block}[kind]
+            mix, new_cache = block(p["mixer"], h, cfg, cache=cache,
+                                   cache_len=cache_len,
+                                   rules=r if mesh else None)
         else:
             raise ValueError(kind)
-        x = x + mix
+        # the branch output placed as the residual first (under sp a
+        # reduce-scatter), so its gradient reaches the output projection
+        # sharded on the batch alone (a (batch, sequence) pair sharded
+        # twice has no product strategy but gathering it whole)
+        x = res_act(x + res_act(mix))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if "ffn" in p:
             h2 = apply_norm(cfg.norm, p["norm2"], x)
+            if sp:
+                h2 = r.act(h2, "dp", None, None)
             f = p["ffn"]
+            pins = r if mesh and not decode2d else None
             if "moe" in f:
-                y, aux = moe_mod.moe_ffn(f["moe"], h2, cfg, act=cfg.act)
+                y, aux = self._moe(f["moe"], h2, decode2d)
                 if "shared" in f:
-                    y = y + gated_mlp(f["shared"], h2, cfg.act)
+                    y = y + gated_mlp(f["shared"], h2, cfg.act, rules=pins)
             else:
-                y = gated_mlp(f["mlp"], h2, cfg.act)
-            x = x + y
+                y = gated_mlp(f["mlp"], h2, cfg.act, rules=pins)
+            x = res_act(x + res_act(y))
         return x, new_cache, aux
+
+    def _moe(self, p, x, decode2d: bool = False):
+        """The routed experts: one device, or the reference's
+        ``shard_map`` over the mesh (experts over ``model``; tokens over
+        dp, or replicated with the experts' hidden dim over dp in the 2D
+        decode layout).  Each rank's gradients of the inputs it got
+        replicated are partial sums over the axes it shares them on."""
+        cfg, r = self.cfg, self.rules
+        if r.mesh is None:
+            return moe_mod.moe_ffn(p, x, cfg, act=cfg.act)
+        mesh = r.mesh
+        dp = r.dp if len(r.dp) > 1 else r.dp[0]
+        model = (mesh, "model")
+        every = tuple(mesh.mesh_dim_names)
+
+        if decode2d:
+            def local2d(pp, xx):
+                y, aux = moe_mod.moe_ffn(pp, xx, cfg, axis_name=model,
+                                         act=cfg.act, axis_data=(mesh, r.dp))
+                return y, pmean(aux, model)
+
+            in_specs = ({"router": {"w": P(None, None)},
+                         "wi": P("model", dp, None),
+                         "wg": P("model", dp, None),
+                         "wo": P("model", None, dp)},
+                        P(None, None, None))
+            grads = ({"router": {"w": GradSpec(P(None, None), every)},
+                      "wi": in_specs[0]["wi"], "wg": in_specs[0]["wg"],
+                      "wo": in_specs[0]["wo"]},
+                     GradSpec(P(None, None, None), every))
+            return shard_map(local2d, mesh, in_specs,
+                             (P(None, None, dp), P()), grads)(p, x)
+
+        def local(pp, xx):
+            y, aux = moe_mod.moe_ffn(pp, xx, cfg, axis_name=model,
+                                     act=cfg.act)
+            aux = pmean(aux, (mesh, r.dp))
+            return y, pmean(aux, model)
+
+        in_specs = ({"router": {"w": P(None, None)},
+                     "wi": P("model", None, None),
+                     "wg": P("model", None, None),
+                     "wo": P("model", None, None)},
+                    P(dp, None, None))
+        grads = ({"router": {"w": GradSpec(P(None, None), every)},
+                  **{n: GradSpec(P("model", None, None), r.dp)
+                     for n in ("wi", "wg", "wo")}},
+                 GradSpec(P(dp, None, None), ("model",)))
+        return shard_map(local, mesh, in_specs, (P(dp, None, None), P()),
+                         grads)(p, x)
 
     def _embed(self, params, tokens, prefix_embeds=None):
         cfg = self.cfg
-        x = F.embedding(tokens, params["embed"]["embedding"]).to(self.cdtype)
+        emb = params["embed"]["embedding"]
+        if self.rules.mesh is None:
+            x = F.embedding(tokens, emb)
+        else:
+            x = self._embed_mesh(emb, tokens)
+        x = x.to(self.cdtype)
         if cfg.input_mode == "tokens+prefix" and prefix_embeds is not None:
             px = prefix_embeds.to(self.cdtype) \
                 @ params["prefix"]["prefix_proj"].to(self.cdtype)
             x = torch.cat([px, x], 1)
         elif cfg.input_mode == "embeddings" and prefix_embeds is not None:
             x = prefix_embeds.to(self.cdtype)
-        return x
+        return self.rules.act(x, "dp", None, None)
+
+    def _embed_mesh(self, emb, tokens):
+        """The vocabulary-parallel lookup: each tp rank holds a slice of
+        the vocabulary's rows (its D gathered over the ZeRO axes), looks up
+        the tokens that fall in it (zero rows elsewhere), and a psum over
+        tp completes every row (one nonzero term: exact)."""
+        r = self.rules
+        mesh = r.mesh
+        tp = (mesh, r.tp) if r.tp else None
+
+        def local(table, tok):
+            if tp is None:
+                return F.embedding(tok, table)
+            v0 = axis_index(tp) * table.shape[0]
+            rel = tok - v0
+            mine = (rel >= 0) & (rel < table.shape[0])
+            rows = F.embedding(torch.where(mine, rel, 0), table)
+            return psum(torch.where(mine[..., None], rows, 0.0), tp)
+
+        tspec = r.spec("tp", None)
+        bspec = r.spec("dp", None)
+        return shard_map(local, mesh, (tspec, bspec), r.spec("dp", None, None),
+                         (GradSpec(tspec, r.dp), bspec))(emb, tokens)
 
     def _head(self, params, x):
         """float32 logits of the final norm against the (tied) head."""
         cfg = self.cfg
         x = apply_norm(cfg.norm, params["final_norm"], x)
+        if self.rules.mesh is not None and any(
+                p.is_shard(1) for p in x.placements):
+            # sequence-parallel residual: gather the sequence before the
+            # vocabulary-parallel product (Megatron-SP)
+            x = self.rules.act(x, "dp", None, None)
         w = (params["embed"]["embedding"].T if cfg.tie_embeddings
              else params["head"]["lm_head"])
-        return mm32(x, w.to(x.dtype), "bsd,dv->bsv")
+        return self.rules.act(mm32(x, w.to(x.dtype), "bsd,dv->bsv"),
+                              "dp", None, "tp")
 
     def _stack_walk(self, params, x, cache, after_group=None):
         """Run prelude -> scan groups -> postlude.  Returns (x, new_cache,
@@ -258,6 +377,9 @@ class Model:
         for it; prefill and decode never do."""
         cfg = self.cfg
         cache_len = cache["len"] if cache is not None else None
+        # sequence parallelism in the forward (the reference's train mode)
+        sp = bool(self.rules.sp and self.rules.mesh is not None
+                  and cache is None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_cache: dict | None = {} if cache is not None else None
 
@@ -266,7 +388,8 @@ class Model:
             outs = []
             for j, (p, kind) in enumerate(zip(blocks, kinds)):
                 c = caches[j] if caches is not None else None
-                x, nc, a = self._block(p, x, kind, c, cache_len, moe_layer)
+                x, nc, a = self._block(p, x, kind, c, cache_len, moe_layer,
+                                       sp)
                 aux = aux + a
                 outs.append(nc)
             return x, aux, outs
@@ -286,8 +409,8 @@ class Model:
                      and cfg.remat != "none")
             outs = []
             for i in range(self.n_scan):
-                gp = [tree_map(lambda t: t[i], blocks)
-                      for blocks in params["scan"]]
+                gp = self._pin_group([tree_map(lambda t: t[i], blocks)
+                                      for blocks in params["scan"]])
                 if remat:
                     # the reference's jax.checkpoint of each scan group:
                     # the backward keeps only the group's inputs
@@ -328,9 +451,16 @@ class Model:
     def decode_step(self, params, token, cache):
         """token (B,) int -> (logits (B, 1, V), cache')."""
         x = self._embed(params, token[:, None])
+        if self.rules.mesh is not None:
+            x = self.rules.act(x, None, None, "dp")     # 2D decode layout
         x, new_cache, _ = self._stack_walk(params, x, cache)
         new_cache["len"] = cache["len"] + 1
         return self._head(params, x), new_cache
+
+
+def build_model(cfg: ModelConfig, rules: ShardingRules | None = None,
+                device=None) -> Model:
+    return Model(cfg, device, rules)
 
 
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:

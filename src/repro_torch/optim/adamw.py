@@ -17,7 +17,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.transformer import tree_leaves, tree_map, tree_unzip
+from torch.distributed.tensor import DTensor
+
+from ..tree import tree_leaves, tree_map, tree_unzip
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "cosine_schedule",
            "global_norm", "clip_by_global_norm", "CHUNK_MIN_SIZE"]
@@ -43,7 +45,7 @@ def adamw_init(params, moment_dtype=torch.float32) -> AdamWState:
     leaf = tree_leaves(params)[0]
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+        return torch.zeros_like(p, dtype=moment_dtype)
 
     return AdamWState(torch.zeros((), dtype=torch.int32, device=leaf.device),
                       tree_map(zeros, params), tree_map(zeros, params))
@@ -75,7 +77,8 @@ def adamw_update(params, grads, state: AdamWState, lr,
     skips leaves with ``ndim < 2`` (norms, biases); bias corrections use
     ``b1 ** t`` in float32."""
     gn = global_norm(grads)
-    scale = _clip_scale(gn, max_grad_norm)
+    scale = _local(_clip_scale(gn, max_grad_norm))
+    lr = _local(lr)
     t = state.step + 1
     tf = t.float()
     c1 = 1.0 - torch.pow(b1, tf)
@@ -92,7 +95,19 @@ def adamw_update(params, grads, state: AdamWState, lr,
         return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
 
     def upd(p, g, m, v):
-        wd = bool(p.dim() >= 2 and weight_decay)
+        if isinstance(p, DTensor):
+            # elementwise on each rank's shards (the moments and, after
+            # the train step's reduce-scatter, the gradients share the
+            # parameter's placements); the norm above is global
+            out = upd_local(*(t.to_local() for t in (p, g, m, v)),
+                            p.dim() >= 2)
+            return tuple(DTensor.from_local(o, t.device_mesh, t.placements,
+                                            shape=t.shape, stride=t.stride())
+                         for o, t in zip(out, (p, m, v)))
+        return upd_local(p, g, m, v, p.dim() >= 2)
+
+    def upd_local(p, g, m, v, matrix: bool):
+        wd = bool(matrix and weight_decay)
         if p.dim() >= 3 and p.shape[0] >= 8 and p.numel() >= CHUNK_MIN_SIZE:
             n = p.shape[0]
             while p.shape[0] % n or n > 16:      # <= 16 even chunks
@@ -111,6 +126,11 @@ def adamw_update(params, grads, state: AdamWState, lr,
     p_new, m_new, v_new = tree_unzip(
         tree_map(upd, params, grads, state.m, state.v), 3)
     return p_new, AdamWState(t, m_new, v_new), {"grad_norm": gn}
+
+
+def _local(x):
+    """A replicated DTensor's local value; anything else as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 def cosine_schedule(step, peak_lr: float, warmup: int, total: int,

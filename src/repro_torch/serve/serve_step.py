@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..models.early_exit import decode_step_cascade
+from ..train.losses import vocab_argmax
 
 __all__ = ["make_prefill_step", "make_decode_step", "generate",
            "make_cascade_decode_step"]
@@ -19,8 +20,9 @@ __all__ = ["make_prefill_step", "make_decode_step", "generate",
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
     """argmax over the last position's float32 logits (the first maximum,
-    as ``jnp.argmax``), as int32."""
-    return torch.argmax(logits[:, -1].float(), -1).to(torch.int32)
+    as ``jnp.argmax``), as int32; vocabulary-sharded DTensor logits are
+    reduced over their shards."""
+    return vocab_argmax(logits[:, -1].float()).to(torch.int32)
 
 
 def make_prefill_step(model):

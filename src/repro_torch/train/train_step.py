@@ -14,7 +14,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.transformer import tree_leaves, tree_map
+from torch.distributed.tensor import DTensor, Replicate
+
+from ..tree import tree_leaves, tree_map
 from ..optim.adamw import (AdamWState, adamw_init, adamw_update,
                            cosine_schedule)
 from .losses import cross_entropy_loss
@@ -51,10 +53,32 @@ def _loss_and_grads(model, params, tokens, labels, mask, prefix_embeds,
             logits = logits[:, model.cfg.n_prefix_embeds:]
         loss, metrics = cross_entropy_loss(logits, labels, mask)
         metrics["aux_loss"] = aux
+        metrics = {k: _replicated(v) for k, v in metrics.items()}
         flat = tree_leaves(leaves)
-        grads = iter(torch.autograd.grad(loss + aux_weight * aux, flat))
-    return (tree_map(lambda _: next(grads), params),
+        grads = iter(torch.autograd.grad(
+            metrics["loss"] + aux_weight * metrics["aux_loss"], flat))
+    # under a mesh each gradient comes back in whatever layout the
+    # backward left it (a batch-sharded product's weight gradient is a
+    # partial sum over dp): the parameter's own placements are the ZeRO
+    # reduce-scatter
+    return (tree_map(lambda p: _placed_like(next(grads), p), params),
             {k: v.detach() for k, v in metrics.items()})
+
+
+def _replicated(t):
+    """A DTensor scalar made whole on every rank (a partial sum reduced);
+    plain tensors as they are.  The backward must start from a
+    replicated loss, or each rank's ones would be summed."""
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh,
+                              [Replicate()] * t.device_mesh.ndim)
+    return t
+
+
+def _placed_like(g, p):
+    if isinstance(g, DTensor):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def batch_grads(model, params, batch: dict, *, microbatch: int = 0,
@@ -79,14 +103,18 @@ def batch_grads(model, params, batch: dict, *, microbatch: int = 0,
     # true division on every device (CUDA's division by a Python scalar
     # multiplies by its reciprocal)
     n_t = torch.scalar_tensor(n, dtype=torch.float32, device=tokens.device)
-    g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
-                                           device=p.device), params)
+    g_acc = tree_map(lambda p: torch.zeros_like(p, dtype=accum_dtype),
+                     params)
     m_acc = {k: torch.zeros((), dtype=torch.float32, device=tokens.device)
              for k in _METRICS}
     for i in range(n):
         def sl(x):
-            return (x[i * microbatch:(i + 1) * microbatch]
-                    if x is not None else None)
+            if x is None:
+                return None
+            part = x[i * microbatch:(i + 1) * microbatch]
+            if isinstance(x, DTensor):      # keep the batch's layout
+                part = part.redistribute(x.device_mesh, x.placements)
+            return part
         grads, metrics = _loss_and_grads(model, params, sl(tokens),
                                          sl(labels), sl(mask), sl(px),
                                          aux_weight)

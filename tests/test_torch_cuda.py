@@ -13,8 +13,11 @@ on the card equal bit for bit to the CPU's; and the LM stack: every
 architecture's smoke config (forward, prefill and decode logits), greedy
 ``generate``, the blockwise flash forward and backward, and an olmo smoke
 train step's metrics, gradients and AdamW update on the card equal to
-the CPU's within the reference's tolerances (float32, TF32 off), and a
-checkpoint of bf16 leaves on the card restored bit for bit.  Imports
+the CPU's within the reference's tolerances (float32, TF32 off), a
+checkpoint of bf16 leaves on the card restored bit for bit; and the mesh
+path on a one-rank NCCL mesh: an olmo smoke train step equal bit for bit
+to the one-device step, ``compressed_psum`` over NCCL, and a sharded
+restore onto the card.  Imports
 only torch, numpy and the port, so it runs where jax is not installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -662,3 +665,99 @@ def test_lm_checkpoint_bf16_round_trip_on_card(card, tmp_path):
     for a, b in ((got["w"], tree["w"]), (got["stack"][0], tree["stack"][0]),
                  (got["step"], tree["step"])):
         assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A one-rank NCCL group (its store a file under ``tmp_path``) and a
+    (1, 1) ("data", "model") mesh on the card; the group is destroyed
+    after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), world_size=1, rank=0)
+    try:
+        yield make_smoke_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_mesh_train_step_on_card_equals_one_device_bit_for_bit(
+        card, no_tf32, nccl_mesh):
+    """olmo smoke, microbatches of 2: the mesh path (DTensor params, ZeRO,
+    sequence parallelism, the flash and the loss under ``shard_map``) on
+    one NCCL rank takes the one-device step's bits: loss, metrics,
+    parameters and moments, placements kept.  No warm-up, so the step's
+    learning rate is not 0 and the parameters move."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import (batch_pspecs, distribute,
+                                                  make_rules)
+    from repro_torch.models import Model
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = get_smoke_config("olmo-1b")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 33))).to(card)
+    runs = []
+    for rules in (None, make_rules(nccl_mesh)):
+        model = Model(cfg, card, rules)
+        state = init_train_state(model, torch.Generator(
+            device=card).manual_seed(0))
+        batch = {"tokens": tokens}
+        if rules is not None:
+            batch = distribute(batch, batch_pspecs(batch, rules), nccl_mesh)
+        new, met = make_train_step(model, peak_lr=1e-3, warmup=0,
+                                   microbatch=2)(state, batch)
+        if rules is not None:
+            assert all(a.placements == b.placements for a, b in zip(
+                tree_leaves(state.params), tree_leaves(new.params)))
+        runs.append((new, met))
+    (one, m_one), (mesh, m_mesh) = runs
+    for k in m_one:
+        assert float(m_one[k]) == float(m_mesh[k]), k
+    for a, b in zip(tree_leaves([one.params, one.opt.m, one.opt.v]),
+                    tree_leaves([mesh.params, mesh.opt.m, mesh.opt.v])):
+        assert torch.equal(a, b.to_local())
+
+
+@pytest.mark.cuda
+def test_compressed_psum_over_nccl_is_compress_decompress(card, nccl_mesh):
+    import torch.distributed as dist
+    from repro_torch.distributed import (compress_leaf, compressed_psum,
+                                         decompress_leaf)
+    g = torch.randn((257, 33), generator=torch.Generator(
+        device=card).manual_seed(1), device=card)
+    want = decompress_leaf(*compress_leaf(g)).view(torch.int32)
+    for axis in ((nccl_mesh, "data"), (nccl_mesh, "model"),
+                 dist.group.WORLD):
+        assert torch.equal(compressed_psum(g, axis).view(torch.int32), want)
+
+
+@pytest.mark.cuda
+def test_sharded_restore_onto_the_card(card, nccl_mesh, tmp_path):
+    """stablelm smoke in bf16: a mesh checkpoint restored with
+    ``shardings=`` (each leaf read as its shard) onto the card's mesh,
+    and whole into a one-device model: the saved bits and placements."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import make_rules, shardings_for
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves
+    cfg = get_smoke_config("stablelm-1.6b").with_(param_dtype="bfloat16")
+    rules = make_rules(nccl_mesh)
+    params = Model(cfg, card, rules).init(
+        torch.Generator(device=card).manual_seed(0))
+    d = str(tmp_path / "ckpt")
+    save_checkpoint(d, 3, params)
+    like = Model(cfg, "meta").init()
+    got, step, _ = restore_checkpoint(d, like,
+                                      shardings=shardings_for(like, rules))
+    whole, _, _ = restore_checkpoint(d, like, device=card)
+    assert step == 3
+    for a, b, c in zip(tree_leaves(got), tree_leaves(params),
+                       tree_leaves(whole)):
+        assert a.to_local().is_cuda and a.placements == b.placements
+        assert torch.equal(a.to_local(), b.to_local())
+        assert c.is_cuda and torch.equal(c, b.to_local())
