@@ -111,8 +111,12 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
    saving); a float32 copy on the card and on the CPU, equal greedy tokens
    and logits within 2e-3; the blockwise flash forward against its oracle
    at (1, 4096, 16, 128) bf16, timed beside
-   ``scaled_dot_product_attention`` (``check_lm``).  The LM stack has no
-   hand kernel: this phase launches none of S, A, B, C, D.
+   ``scaled_dot_product_attention``; the same prompts through prefill and
+   decode steps made with ``donate=True`` (each step writes the cache it
+   is given), interleaved step by step with the functional steps:
+   ``generate``'s tokens from both, the cache's tensors returned, ms per
+   prefill and decode step of both in one window (``check_lm``).  The
+   LM stack has no hand kernel: this phase launches none of S, A, B, C, D.
 11. LM training: ``repro_torch.train`` at ``olmo-1b``'s full width (bf16
    params, float32 moments, remat ``"block"``, weights from a seed),
    ``LM_TRAIN_STEPS`` steps of 8 x 2048 tokens in microbatches of 4:
@@ -124,8 +128,14 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
    a restart (2 steps, checkpoint, restore, 2 steps) equal to 4 straight
    steps; the flash backward at (1, 4096, 16, 128) bf16 against float32
    autograd through the oracle, timed beside the backward of
-   ``scaled_dot_product_attention`` and its bound (``check_lm_train``).
-   No hand kernel runs: this phase launches none of S, A, B, C, D.
+   ``scaled_dot_product_attention`` and its bound; the same steps from
+   the same state made with ``donate=True`` (parameters and moments
+   updated in place): every loss and grad norm, and step 1's parameters
+   and moments, equal to the functional run's bit for bit, every returned
+   tensor the given one, ms per step, and the peak of allocated memory,
+   split at the optimizer update into the forward-and-backward's and the
+   update's (``check_lm_train``).  No hand kernel runs: this phase
+   launches none of S, A, B, C, D.
 12. the mesh path: ``repro_torch.distributed`` (DTensor) on a one-rank
    NCCL mesh (``one_rank_mesh``: ``make_smoke_mesh(1, 1)``, ZeRO and
    sequence parallelism on), at ``olmo-1b``'s full width: phase 11's
@@ -141,10 +151,20 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
    saved and restored onto the mesh (``shardings=``) and into the
    one-device model (0 entries differ), the dry run of ``MESH_DRYRUN`` on
    the production meshes in subprocesses (per-device argument
-   bytes, tracked peak, collective bytes, roofline terms), and phase 11's
-   step against its analytic roofline at H100 constants
-   (``check_lm_mesh``).  No hand kernel runs: this phase launches none of
-   S, A, B, C, D.
+   bytes, tracked peak, FLOPs and bytes accessed of the local operations,
+   collective bytes, roofline terms; each step donating its state or
+   cache), and phase 11's step against its analytic roofline at H100
+   constants (``check_lm_mesh``).  No hand kernel runs: this phase
+   launches none of S, A, B, C, D.
+13. the examples: ``examples/torch_quickstart.py``,
+   ``torch_cascade_serving.py``, ``torch_video_stream.py``,
+   ``torch_energy_tuned_detection.py`` and ``torch_early_exit_serving.py``
+   (the repository's user surfaces, through ``repro_torch`` only), each
+   ``main()`` on the card (no ``--device``): it returns 0 and prints its
+   identity lines (``batched==sequential: True`` for every image, ``rects
+   == detect: True`` for every frame) (``check_examples``).  Its launches
+   are counted and not required: the examples' detectors keep
+   ``EngineConfig``'s default ``use_pallas=False``.
 
 Every path driven on the card runs with the launch counts set to 0 just
 before it and read just after: each must have launched the kernels of its
@@ -159,15 +179,16 @@ keyframes, C; trained, the trained cascade's flush: S, A, C) and none it
 must not (no engine, service or fleet path launches D; no stream,
 service or fleet path B; an incremental frame no dense kernel; lm, the
 whole LM phase, none of the five; lm_train, the whole training phase,
-none of the five; lm_mesh, the whole mesh phase, none of the five).
+none of the five; lm_mesh, the whole mesh phase, none of the five;
+examples, the five examples, any).
 
 Device times come from ``profiled_ms``, which divides a trace's device
 time by the launches the trace holds, not by the calls requested.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"stream": {...}}``, ``{"service": {...}}``, ``{"fleet":
-{...}}``, ``{"training": {...}}``, ``{"lm": {...}}``, ``{"lm_train": {...}}`` and ``{"lm_mesh":
-{...}}`` line each, and
+{...}}``, ``{"training": {...}}``, ``{"lm": {...}}``, ``{"lm_train": {...}}``, ``{"lm_mesh":
+{...}}`` and ``{"examples": {...}}`` line each, and
 last ``{"ok": true,
 "device": {...}}``; it exits non-zero, with no result line, when there is
 no CUDA device or no checkout around it.
@@ -280,7 +301,8 @@ MESH_BOUNDS = dict(moe=5e-4, aux=5e-3)
 MESH_MOE_TOKENS = (4, 16)
 MESH_DRYRUN = (("olmo-1b", "train_4k", False),
                ("olmo-1b", "train_4k", True),
-               ("qwen3-moe-235b-a22b", "decode_32k", False))
+               ("qwen3-moe-235b-a22b", "decode_32k", False),
+               ("recurrentgemma-2b", "decode_32k", False))
 MESH_DRYRUN_TIMEOUT = 600
 
 
@@ -534,15 +556,17 @@ def lm_workload(torch, device, rules=None):
     return model, params, prompts
 
 
-def lm_train_workload(torch, device, remat: str = "block", rules=None):
+def lm_train_workload(torch, device, remat: str = "block", rules=None,
+                      donate: bool = False):
     """Phase 11's training workload: ``LM_ARCH`` at full width (its remat
     set to ``remat``), a ``TrainState`` drawn on ``device`` from seed
     ``SEED``, the ``SyntheticTokens`` pipeline of ``LM_TRAIN_BATCH`` x
     ``LM_TRAIN_SEQ`` tokens and the train step (microbatch
     ``LM_TRAIN_MICRO``, ``LM_TRAIN_OPT``).  With ``rules`` (phase 12) the
     same state is placed by the mesh's specs and each batch spread over
-    dp.  Returns ``(model, state, batch_at, step)``; ``batch_at(i)`` is
-    step i's batch on the device."""
+    dp; with ``donate`` the step updates the state in place.  Returns
+    ``(model, state, batch_at, step)``; ``batch_at(i)`` is step i's batch
+    on the device."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
     from repro_torch.distributed.sharding import batch_pspecs, distribute
@@ -562,7 +586,7 @@ def lm_train_workload(torch, device, remat: str = "block", rules=None):
         return batch
 
     return model, state, batch_at, make_train_step(
-        model, microbatch=LM_TRAIN_MICRO, **LM_TRAIN_OPT)
+        model, microbatch=LM_TRAIN_MICRO, donate=donate, **LM_TRAIN_OPT)
 
 
 def pipelined(vd, frames) -> list:
@@ -1631,7 +1655,7 @@ def check_lm(torch, on_path, smi: str, carry: dict | None = None):
     from repro_torch.models.layers import attention_reference, flash_attention
     from repro_torch.models.transformer import tree_leaves, tree_map
     from repro_torch.serve import (generate, make_cascade_decode_step,
-                                   make_decode_step)
+                                   make_decode_step, make_prefill_step)
     t_phase = time.perf_counter()
     dev = torch.device(DEVICE)
     cfg = get_config(LM_ARCH)
@@ -1688,7 +1712,63 @@ def check_lm(torch, on_path, smi: str, carry: dict | None = None):
               f"{out['max_memory_allocated'] / 2**30:.2f} GiB (earlier "
               f"phases hold {out['memory_allocated_before'] / 2**30:.2f}) "
               f"[{smi}]")
-        return cascade(model, params, prompts)
+        return donated(model, params, prompts, toks) or cascade(
+            model, params, prompts)
+
+    def donated(model, params, prompts, want):
+        """``generate``'s loop through steps made with ``donate=True``
+        and through the functional steps, the two interleaved step by step
+        (which goes first alternates) so that both are timed in one
+        window: both loops' tokens, every donated step returning the
+        cache's own tensors."""
+        steps = {d: (make_prefill_step(model, donate=d),
+                     make_decode_step(model, donate=d))
+                 for d in (False, True)}
+        caches = {d: model.init_cache(LM_BATCH, LM_PROMPT + LM_NEW)
+                  for d in steps}
+        ptrs = [t.data_ptr() for t in tree_leaves(caches[True]) if t.dim()]
+        marks: dict = {d: [] for d in steps}
+        toks: dict = {d: [] for d in steps}
+        aliased = True
+        for i in range(LM_NEW):
+            for d in ((False, True) if i % 2 == 0 else (True, False)):
+                prefill, decode = steps[d]
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                if i == 0:
+                    logits, caches[d] = prefill(params, prompts, caches[d])
+                    tok = torch.argmax(logits[:, -1].float(), -1).to(
+                        torch.int32)
+                else:
+                    tok, caches[d], _ = decode(params, toks[d][-1],
+                                               caches[d])
+                ev[1].record()
+                marks[d].append(ev)
+                toks[d].append(tok)
+            aliased &= [t.data_ptr() for t in tree_leaves(caches[True])
+                        if t.dim()] == ptrs
+        torch.cuda.synchronize()
+        ms = {d: [a.elapsed_time(b) for a, b in m] for d, m in marks.items()}
+        equal = all(torch.equal(torch.stack(t, 1), want)
+                    for t in toks.values())
+        out["donated"] = {
+            "tokens_equal": equal, "cache_aliased": aliased,
+            "ms_per_prefill": ms[True][0],
+            "ms_per_decode_step": statistics.median(ms[True][2:]),
+            "functional_ms_per_prefill": ms[False][0],
+            "functional_ms_per_decode_step": statistics.median(ms[False][2:])}
+        d = out["donated"]
+        print(f"lm donated steps (donate=True) interleaved with the "
+              f"functional steps, the same {LM_BATCH} x {LM_PROMPT} + "
+              f"{LM_NEW}: both runs' tokens equal generate's {equal}; "
+              f"every donated step returned the given cache's tensors "
+              f"{aliased}; prefill {d['ms_per_prefill']:.3f} ms "
+              f"(functional {d['functional_ms_per_prefill']:.3f}), decode "
+              f"step {d['ms_per_decode_step']:.3f} ms (functional "
+              f"{d['functional_ms_per_decode_step']:.3f}) [{smi}]")
+        if not (equal and aliased):
+            return "donated serving: tokens differ or a new cache returned"
+        return ""
 
     def cascade(model, params, prompts):
         cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_CASCADE_STEPS)
@@ -1903,6 +1983,7 @@ def check_lm_train(torch, on_path, smi: str, carry: dict | None = None):
     from repro_torch.models.transformer import tree_leaves, tree_map
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import train_step as train_step_mod
     from repro_torch.train.train_step import batch_grads
     t_phase = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -1911,6 +1992,7 @@ def check_lm_train(torch, on_path, smi: str, carry: dict | None = None):
                  "remat": cfg.remat, "batch": LM_TRAIN_BATCH,
                  "seq": LM_TRAIN_SEQ, "microbatch": LM_TRAIN_MICRO,
                  "steps": LM_TRAIN_STEPS, "opt": LM_TRAIN_OPT}
+    held: dict = {}            # step 1's state, for the donated run
 
     def train():
         out["memory_allocated_before"] = torch.cuda.memory_allocated()
@@ -1929,11 +2011,13 @@ def check_lm_train(torch, on_path, smi: str, carry: dict | None = None):
             ev[1].record()
             marks.append(ev)
             metrics.append(m)
-            if i == 0 and carry is not None:   # phase 12's comparison
-                carry["params_step1"] = state.params
+            if i == 0:      # the donated run's and phase 12's comparison
+                held["params_step1"] = state.params
                 # on the host, so phase 11's peak stays its own
-                carry["opt_step1"] = tree_map(lambda t: t.cpu(),
-                                              (state.opt.m, state.opt.v))
+                held["opt_step1"] = tree_map(lambda t: t.cpu(),
+                                             (state.opt.m, state.opt.v))
+                if carry is not None:
+                    carry.update(held)
         torch.cuda.synchronize()
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         ms = [a.elapsed_time(b) for a, b in marks]
@@ -2136,8 +2220,94 @@ def check_lm_train(torch, on_path, smi: str, carry: dict | None = None):
                     f"from the oracle")
         return ""
 
+    def donated():
+        """Phase 11's steps from the same state with ``donate=True``."""
+        model, state, batch_at, step = lm_train_workload(torch, dev,
+                                                         donate=True)
+
+        def leaves(st):
+            return tree_leaves([st.params, st.opt.m, st.opt.v])
+
+        ptrs = [t.data_ptr() for t in leaves(state)]
+        peaks: dict = {}
+        update = train_step_mod.adamw_update
+
+        def spied(*a, **k):
+            """The update with the peak before it (the forward's and
+            backward's) and its own."""
+            torch.cuda.synchronize()
+            peaks["backward"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = update(*a, **k)
+            torch.cuda.synchronize()
+            peaks["update"] = torch.cuda.max_memory_allocated()
+            return res
+
+        marks, losses, norms, aliased = [], [], [], True
+        try:
+            for i in range(LM_TRAIN_STEPS):
+                batch = batch_at(i)
+                if i == LM_TRAIN_STEPS - 1:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    train_step_mod.adamw_update = spied
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                state, m = step(state, batch)
+                ev[1].record()
+                marks.append(ev)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                aliased &= [t.data_ptr() for t in leaves(state)] == ptrs
+                if i == 0:
+                    # the functional run's step-1 parameters stay held to
+                    # the end, as they were through its steps
+                    diffs = [leaf_diff(torch, state.params,
+                                       held["params_step1"])] + [
+                        leaf_diff(torch, a, b) for a, b in zip(
+                            (state.opt.m, state.opt.v),
+                            held.pop("opt_step1"))]
+        finally:
+            train_step_mod.adamw_update = update
+        held.clear()
+        ms = [a.elapsed_time(b) for a, b in marks]
+        peak = max(peaks.values())
+        out["donated"] = {
+            "loss_equal": losses == out["loss"],
+            "grad_norm_equal": norms == out["grad_norm"],
+            "step1_entries_differ": {n: d[0] for n, d in zip(
+                ("params", "m", "v"), diffs)},
+            "step1_entries": diffs[0][2],
+            "aliased": aliased, "ms_per_step_runs": ms,
+            "ms_per_step": statistics.median(ms[1:]),
+            "max_memory_allocated": peak,
+            "max_memory_allocated_backward": peaks["backward"],
+            "max_memory_allocated_update": peaks["update"],
+            "peak_set_by": max(peaks, key=peaks.get),
+            "functional_max_memory_allocated": out["max_memory_allocated"],
+            "functional_ms_per_step": out["ms_per_step"]}
+        d = out["donated"]
+        n_diff = sum(d["step1_entries_differ"].values())
+        print(f"lm_train donated (donate=True), phase 11's state and "
+              f"batches: losses equal {d['loss_equal']}, grad norms equal "
+              f"{d['grad_norm_equal']}; after step 1, entries differing "
+              f"from the functional run's: {d['step1_entries_differ']} of "
+              f"{d['step1_entries']} each; every step returned the given "
+              f"tensors {aliased}; {d['ms_per_step']:.1f} ms per step "
+              f"(functional {out['ms_per_step']:.1f}); peak "
+              f"{peak / 2**30:.2f} GiB (functional "
+              f"{out['max_memory_allocated'] / 2**30:.2f}), forward and "
+              f"backward {peaks['backward'] / 2**30:.2f}, update "
+              f"{peaks['update'] / 2**30:.2f}: set by the "
+              f"{d['peak_set_by']} [{smi}]")
+        if not (d["loss_equal"] and d["grad_norm_equal"] and aliased) \
+                or n_diff:
+            return ("donated training: off the functional run's bits or "
+                    "new tensors returned")
+        return ""
+
     def phase():
-        for part in (train, card_vs_cpu, restart, backward):
+        for part in (train, donated, card_vs_cpu, restart, backward):
             err = part()
             torch.cuda.empty_cache()
             if err:
@@ -2564,11 +2734,19 @@ def check_lm_mesh(torch, on_path, smi: str, lm: dict, lm_train: dict,
         for c in cells:
             if not c.get("ok"):
                 return f"dryrun {c['arch']} x {c['shape']}: {c.get('error')}"
+            if not all(isinstance(c[k], float) and c[k] > 0
+                       for k in ("flops", "bytes_accessed")):
+                return (f"dryrun {c['arch']} x {c['shape']}: flops "
+                        f"{c['flops']}, bytes accessed {c['bytes_accessed']}")
             m, r = c["memory"], c["roofline"]
             print(f"lm_mesh dryrun [{c['mesh']}] {c['arch']} x {c['shape']}"
                   f": per device arguments "
                   f"{m['argument_size_in_bytes'] / 2**30:.3f} GiB, tracked "
-                  f"peak {m['peak_memory_in_bytes'] / 2**30:.3f} GiB; "
+                  f"peak {m['peak_memory_in_bytes'] / 2**30:.3f} GiB "
+                  f"({m['peak_memory_in_bytes']} bytes), flops "
+                  f"{c['flops']:.6g}, bytes accessed "
+                  f"{c['bytes_accessed']:.6g} (local operations, donated "
+                  f"state or cache); "
                   f"collectives {c['collective_bytes'] / 2**30:.3f} GiB "
                   f"{ {k: round(v / 2**30, 3) for k, v in c['collective_ops'].items()} }"
                   f" in {r['collective_ops']} ops; roofline at H100: "
@@ -2606,6 +2784,57 @@ def check_lm_mesh(torch, on_path, smi: str, lm: dict, lm_train: dict,
                                 tuple(KERNEL_ENTRIES.values()))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, err or path_err
+
+
+EXAMPLES = ("torch_quickstart", "torch_cascade_serving",
+            "torch_video_stream", "torch_energy_tuned_detection",
+            "torch_early_exit_serving")
+# (example, identity line, lines that must print it)
+EXAMPLE_IDENTITIES = (("torch_cascade_serving", "batched==sequential: True",
+                       8),
+                      ("torch_video_stream", "rects == detect: True", 10))
+
+
+def check_examples(torch, on_path, smi: str):
+    """Phase 13.  Returns ``(report, error)``; ``error`` is '' when every
+    check held.  Each of ``EXAMPLES`` (``examples/<name>.py``) loaded and
+    its ``main([])`` run in this process on the card (no ``--device``):
+    it returns 0 or None, and the identity lines of
+    ``EXAMPLE_IDENTITIES`` print ``True`` for every image or frame.  The
+    output is echoed; the launches are counted, none required."""
+    import importlib.util
+    import io
+    t_phase = time.perf_counter()
+    out: dict = {"card": smi}
+
+    def run_all():
+        for name in EXAMPLES:
+            spec = importlib.util.spec_from_file_location(
+                name, ROOT / "examples" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main([])
+            torch.cuda.synchronize()
+            text = buf.getvalue()
+            print(text, end="")
+            out[name] = {"returned": rc, "seconds":
+                         time.perf_counter() - t0, "lines": text.count("\n")}
+            print(f"example {name}: returned {rc} in "
+                  f"{out[name]['seconds']:.1f} s [{smi}]")
+            if rc not in (None, 0) or f"device: {DEVICE}" not in text:
+                return f"example {name}: returned {rc}"
+            for ex, line, n in EXAMPLE_IDENTITIES:
+                if ex == name and text.count(line) != n:
+                    return (f"example {name}: {text.count(line)} of {n} "
+                            f"lines say {line!r}")
+        return ""
+
+    err, path_err = on_path("examples", run_all, (), ())
     out["seconds"] = time.perf_counter() - t_phase
     return out, err or path_err
 
@@ -3188,6 +3417,13 @@ def main() -> int:
     print(f"mesh phase: {lm_mesh['seconds']:.1f} s")
     report["lm_mesh"] = lm_mesh
 
+    # ---------------------------------------------------- 13. the examples
+    examples, err = check_examples(torch, on_path, smi)
+    if err:
+        return fail(f"examples: {err}")
+    print(f"examples phase: {examples['seconds']:.1f} s")
+    report["examples"] = examples
+
     # each kernel's launches are those of the first path that runs it: S, A
     # and C on the fused flush, B on the split flush, D on the kernel API
     launch_path = {split_b: "split", inv_d_k: "kernel_api"}
@@ -3208,6 +3444,7 @@ def main() -> int:
     print(json.dumps({"lm": lm}))
     print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"lm_mesh": lm_mesh}))
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

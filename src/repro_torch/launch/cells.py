@@ -170,7 +170,9 @@ def input_specs(arch: str, shape: str, mesh, *, cfg: ModelConfig = None,
 def build_cell(arch: str, shape: str, mesh, *, cfg: ModelConfig = None,
                fsdp: bool = True, microbatch: int = 0):
     """Returns ``(step_fn, inputs)``; ``step_fn(**inputs)`` under the
-    active fake mode is the dry-run contract."""
+    active fake mode is the dry-run contract.  The step writes its train
+    state (a train shape) or its cache (a serving shape) in place, as the
+    reference's dry run donates them."""
     cfg = cfg or get_config(arch)
     rules = make_rules(mesh, fsdp=fsdp)
     model = Model(cfg, mesh.device_type, rules)
@@ -180,13 +182,13 @@ def build_cell(arch: str, shape: str, mesh, *, cfg: ModelConfig = None,
         if microbatch == 0:
             microbatch = default_microbatch(cfg, spec, mesh_chips(mesh))
         fn = make_train_step(model, microbatch=microbatch,
-                             accum_dtype=_accum_dtype(cfg))
+                             accum_dtype=_accum_dtype(cfg), donate=True)
 
         def train_fn(state, batch):
             return fn(state, batch)
         return train_fn, inputs
     if spec.kind == "prefill":
-        pf = make_prefill_step(model)
+        pf = make_prefill_step(model, donate=True)
         if cfg.input_mode == "tokens+prefix":
             def prefill_fn(params, tokens, cache, prefix_embeds):
                 return pf(params, tokens, cache, prefix_embeds)
@@ -194,7 +196,7 @@ def build_cell(arch: str, shape: str, mesh, *, cfg: ModelConfig = None,
             def prefill_fn(params, tokens, cache):
                 return pf(params, tokens, cache)
         return prefill_fn, inputs
-    dc = make_decode_step(model)
+    dc = make_decode_step(model, donate=True)
 
     def decode_fn(params, token, cache):
         return dc(params, token, cache)

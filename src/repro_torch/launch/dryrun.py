@@ -4,11 +4,16 @@ For every (architecture x input shape x mesh): build the step function
 and its fake DTensor inputs (``launch/cells.py``), run one step on those
 fake tensors (``FakeTensorMode``: shapes only, nothing allocated) on the
 production mesh over a fake world of 256 or 512 ranks, and record per
-device the argument bytes (this rank's shards
-of the inputs), the tracked peak (``LocalPeak``: inputs plus every
-tensor the step's local operations hold at once), the collective footprint
-(``roofline.CollectiveCounter``) and the roofline terms at H100
-constants.  A cell failing here is a bug in the distribution config.
+device the argument bytes (this rank's shards of the inputs), the
+tracked peak, the FLOPs and the bytes accessed (``roofline.LocalCost``:
+inputs plus every tensor the step's local operations hold at once; each
+local operation's FLOPs and its operands' and outputs' bytes), the
+collective footprint (``roofline.CollectiveCounter``) and the roofline
+terms at H100 constants.  The step donates what the reference's dry run
+donates to its jitted step: the train state, or the serving cache
+(``build_cell`` builds it with ``donate=True``), so a buffer written in
+place is counted once.  A cell failing here is a bug in the distribution
+config.
 
 The fake world starts when this module is imported, before anything
 else: it is a script entry point only, never imported by library or
@@ -44,14 +49,9 @@ import argparse  # noqa: E402
 import json  # noqa: E402
 import time  # noqa: E402
 import traceback  # noqa: E402
-import weakref  # noqa: E402
 
-import torch  # noqa: E402
-import torch.utils._pytree as pytree  # noqa: E402
-from torch._subclasses.fake_tensor import (FakeTensor,  # noqa: E402
-                                           FakeTensorMode)
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 from torch.distributed.tensor import DTensor  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.configs import SHAPES, list_archs  # noqa: E402
 from repro_torch.distributed.sharding import local_bytes  # noqa: E402
@@ -59,56 +59,10 @@ from repro_torch.launch.cells import build_cell, cell_applicable  # noqa: E402
 from repro_torch.launch.mesh import (make_production_mesh,  # noqa: E402
                                      mesh_chips)
 from repro_torch.launch.roofline import (CollectiveCounter,  # noqa: E402
-                                         roofline_from_trace)
+                                         LocalCost, roofline_from_trace)
 from repro_torch.tree import tree_leaves  # noqa: E402
 
-__all__ = ["run_cell", "main", "LocalPeak"]
-
-class LocalPeak(TorchDispatchMode):
-    """The peak bytes one rank's local operations hold at once.
-
-    Counts each storage once while it lives: the external tensors given
-    (the inputs' local shards), then every output of a local operation
-    that belongs to ``fake_mode`` (the step's fake shards) or is a real
-    host tensor.  DTensor-level operations pass through to DTensor, whose
-    sharding propagation computes its global-shape metadata in a fake
-    mode of its own: those tensors are not this rank's memory and are not
-    counted.  (``torch.distributed._tools.mem_tracker.MemTracker`` counts
-    them too in torch 2.11, which has no means to tell the two apart.)"""
-
-    def __init__(self, fake_mode, external=()):
-        super().__init__()
-        self.fake_mode = fake_mode
-        self.live: dict = {}
-        self.now = self.peak = 0
-        for t in external:
-            self._hold(t)
-
-    def _hold(self, t) -> None:
-        st = t.untyped_storage()
-        key = st._cdata
-        if key in self.live:
-            return
-        self.live[key] = st.nbytes()
-        self.now += self.live[key]
-        self.peak = max(self.peak, self.now)
-        weakref.finalize(st, self._free, key)
-
-    def _free(self, key) -> None:
-        self.now -= self.live.pop(key, 0)
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if any(issubclass(t, DTensor) for t in types):
-            return NotImplemented        # DTensor desugars to local ops
-        out = func(*args, **(kwargs or {}))
-        for t in pytree.tree_leaves(out):
-            if not isinstance(t, torch.Tensor) or t.device.type == "meta":
-                continue
-            if (t.fake_mode is self.fake_mode if isinstance(t, FakeTensor)
-                    else True):
-                self._hold(t)
-        return out
-
+__all__ = ["run_cell", "main"]
 
 def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
              fsdp: bool = True, verbose: bool = True) -> dict:
@@ -122,9 +76,9 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
     arg_bytes = local_bytes(inputs)
     # the step runs outside the fake mode: its fake inputs carry it, so
     # DTensor's sharding propagation runs in a fake mode of its own, which
-    # LocalPeak leaves out; the few small tensors the step makes from
+    # LocalCost leaves out; the few small tensors the step makes from
     # nothing (positions, zero scalars) are real
-    mem = LocalPeak(fake, [t.to_local() if isinstance(t, DTensor) else t
+    mem = LocalCost(fake, [t.to_local() if isinstance(t, DTensor) else t
                            for t in tree_leaves(list(inputs.values()))])
     counter = CollectiveCounter()
     with mem, counter:
@@ -133,7 +87,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
     t_trace = time.time() - t0
     peak = mem.peak
     coll = counter.result()
-    roof = roofline_from_trace(arch, shape, mesh_chips(mesh), coll)
+    roof = roofline_from_trace(arch, shape, mesh_chips(mesh), coll, mem)
     result = {
         "arch": arch, "shape": shape,
         "mesh": "pod2x16x16" if multi_pod else "16x16",
@@ -145,10 +99,10 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
                    "temp_size_in_bytes": peak - arg_bytes,
                    # args live in HBM beside temps: the fit criterion
                    "bytes_per_device": peak},
-        # XLA's cost analysis has no eager counterpart; the roofline's
-        # analytic FLOPs and bytes stand in for it
-        "flops": None,
-        "bytes_accessed": None,
+        # XLA's per-device cost analysis, counted on the local operations
+        # (roofline.LocalCost: unfused, every loop iteration counted)
+        "flops": float(mem.flops),
+        "bytes_accessed": float(mem.bytes_accessed),
         "collective_bytes": coll["total_bytes"],
         "collective_ops": coll["per_kind"],
         "roofline": roof,
@@ -156,7 +110,8 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
     if verbose:
         print(f"[{result['mesh']}] {arch} x {shape}: trace {t_trace:.0f}s  "
               f"args/device {arg_bytes / 2**30:.2f} GiB  peak/device "
-              f"{peak / 2**30:.2f} GiB  coll "
+              f"{peak / 2**30:.2f} GiB  flops/device {mem.flops:.4g}  "
+              f"bytes accessed/device {mem.bytes_accessed:.4g}  coll "
               f"{coll['total_bytes'] / 2**30:.2f} GiB", flush=True)
     return result
 

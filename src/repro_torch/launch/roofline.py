@@ -14,17 +14,37 @@ arithmetic).  The port has no HLO, so the reference's
 records every c10d functional collective the traced step runs, with
 its tensor bytes times the ring factor, by kind.  A Python loop runs
 its collectives once per iteration, so no trip count is needed.
+
+The reference's per-device counts from XLA's cost analysis
+(``xla_flops_per_device``, ``xla_bytes_per_device``) come here from
+``LocalCost``, which watches one rank's local operations as they
+dispatch: FLOPs from ``torch.utils.flop_counter``'s formula registry
+(matrix products, convolutions, attention; elementwise operations count
+none), bytes as each operation's operands plus outputs (views move
+none).  They are not XLA's numbers: nothing is fused, so every
+intermediate a fusion would keep in registers is counted as written and
+read again; and every iteration of a Python loop (the layer groups, the
+microbatches) is counted, where XLA's cost analysis counts the body of a
+``while`` loop (the reference's scan over layers) once.
 """
 
 from __future__ import annotations
 
+import weakref
+
+import torch
+import torch.utils._pytree as pytree
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 from ..configs import get_config, SHAPES
 from ..configs.base import ModelConfig, ShapeSpec
 
 __all__ = ["PEAK_FLOPS", "HBM_BW", "LINK_BW", "CollectiveCounter",
-           "analytic_cost", "roofline_from_trace", "model_flops"]
+           "LocalCost", "analytic_cost", "roofline_from_trace",
+           "model_flops"]
 
 PEAK_FLOPS = 989e12   # bf16 dense FLOP/s per H100 SXM (NVIDIA data sheet)
 HBM_BW = 3.35e12      # HBM3 bytes/s per H100 SXM (NVIDIA data sheet)
@@ -87,6 +107,78 @@ class CollectiveCounter(TorchDispatchMode):
         total = float(sum(self.per_kind.values()))
         return {"total_bytes": total, "total_bytes_norm": total,
                 "per_kind": dict(self.per_kind), "n_ops": self.n_ops}
+
+
+class LocalCost(TorchDispatchMode):
+    """One rank's local operations, counted as they dispatch: the peak
+    bytes they hold at once, their FLOPs and their bytes accessed.
+
+    The peak counts each storage once while it lives: the external
+    tensors given (the inputs' local shards), then every output of a
+    local operation that belongs to ``fake_mode`` (the step's fake
+    shards) or is a real host tensor.  A buffer written in place is the
+    same storage, counted once.  FLOPs (``flop_registry``'s formulas) and
+    bytes (each distinct operand once plus each output once: an in-place
+    update reads and writes its buffer; none for a view) count the
+    operations whose outputs are such tensors.
+    DTensor-level operations pass through to DTensor, whose sharding
+    propagation computes its global-shape metadata in a fake mode of its
+    own: those tensors are not this rank's memory or work and are not
+    counted.  (``torch.distributed._tools.mem_tracker.MemTracker`` counts
+    them too in torch 2.11, which has no means to tell the two apart.)"""
+
+    def __init__(self, fake_mode, external=()):
+        super().__init__()
+        self.fake_mode = fake_mode
+        self.live: dict = {}
+        self.now = self.peak = 0
+        self.flops = 0
+        self.bytes_accessed = 0
+        for t in external:
+            self._hold(t)
+
+    def _mine(self, t) -> bool:
+        if not isinstance(t, torch.Tensor) or t.device.type == "meta":
+            return False
+        return (t.fake_mode is self.fake_mode if isinstance(t, FakeTensor)
+                else True)
+
+    def _hold(self, t) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self.live:
+            return
+        self.live[key] = st.nbytes()
+        self.now += self.live[key]
+        self.peak = max(self.peak, self.now)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key) -> None:
+        self.now -= self.live.pop(key, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented        # DTensor desugars to local ops
+        kwargs = kwargs or {}
+        return self.count(func, args, kwargs, func(*args, **kwargs))
+
+    def count(self, func, args, kwargs, out):
+        """Count one operation's result ``out``; returns it."""
+        outs = [t for t in pytree.tree_leaves(out) if self._mine(t)]
+        if not outs:
+            return out
+        for t in outs:
+            self._hold(t)
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += int(formula(*args, **kwargs, out_val=out))
+        if not func.is_view:
+            for group in (pytree.tree_leaves((args, kwargs)), outs):
+                seen = {id(t): t for t in group
+                        if isinstance(t, torch.Tensor)}
+                self.bytes_accessed += sum(t.numel() * t.element_size()
+                                           for t in seen.values())
+        return out
 
 
 # ------------------------------------------------------------- analytic cost
@@ -193,13 +285,14 @@ def _cache_bytes_per_token(cfg: ModelConfig) -> float:
 
 # ----------------------------------------------------------------- assemble
 def roofline_from_trace(arch: str, shape: str, chips: int,
-                        collective: dict, cfg: ModelConfig | None = None
-                        ) -> dict:
+                        collective: dict, local: LocalCost,
+                        cfg: ModelConfig | None = None) -> dict:
     """The reference's ``roofline_from_compiled`` keys from a traced step:
-    the analytic FLOPs and bytes, the counted collective bytes per chip.
-    The reference's ``xla_flops_per_device`` / ``xla_bytes_per_device``
-    (XLA's cost analysis) have no eager counterpart and are dropped; the
-    trace's own collective count is ``collective_ops``."""
+    the analytic FLOPs and bytes, the counted collective bytes per chip,
+    and under the reference's ``xla_flops_per_device`` /
+    ``xla_bytes_per_device`` the step's local FLOPs and bytes accessed
+    counted by ``local`` (not XLA's counts, see the module docstring).
+    The trace's own collective count is ``collective_ops``."""
     cfg = cfg or get_config(arch)
     spec = SHAPES[shape]
     ana = analytic_cost(cfg, spec)
@@ -226,6 +319,8 @@ def roofline_from_trace(arch: str, shape: str, chips: int,
         "analytic_hbm_bytes": float(ana["hbm_bytes"]),
         "model_flops_6ND": float(mf),
         "useful_flops_ratio": float(useful),
+        "xla_flops_per_device": float(local.flops),
+        "xla_bytes_per_device": float(local.bytes_accessed),
         "collective_ops": int(collective["n_ops"]),
         "collective_bytes_per_device": float(collective["total_bytes"]),
         "collective_bytes_bf16_norm": float(collective["total_bytes"]),

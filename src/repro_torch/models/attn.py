@@ -4,12 +4,14 @@ from __future__ import annotations
 
 import torch
 
-from ..distributed.collectives import pmax, psum
+from ..distributed.collectives import axis_index, pmax, psum
 from ..distributed.sharding import P as P_, GradSpec, cache_pspecs, shard_map
 from .layers import (ParamRng, init_dense, dense, apply_rope,
-                     flash_attention, decode_attention, mm32, NEG_INF)
+                     flash_attention, decode_attention, mm32, NEG_INF,
+                     write_into, write_slot)
 
-__all__ = ["init_attn", "attn_block", "init_attn_cache"]
+__all__ = ["init_attn", "attn_block", "init_attn_cache",
+           "write_prompt_mesh"]
 
 
 def init_attn(rng: ParamRng, cfg, dtype) -> dict:
@@ -25,7 +27,8 @@ def init_attn(rng: ParamRng, cfg, dtype) -> dict:
 
 def attn_block(p: dict, x: torch.Tensor, cfg, *, window: int | None = None,
                cache: dict | None = None, cache_len=None,
-               positions: torch.Tensor | None = None, rules=None):
+               positions: torch.Tensor | None = None, rules=None,
+               donate: bool = False):
     """x: (B, S, D).  Returns (out, new_cache).
 
     - forward:  cache None                      -> flash attention
@@ -35,7 +38,9 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, window: int | None = None,
       for windowed layers, a linear buffer otherwise)
 
     ``cache_len`` is a 0-dim integer tensor on the device.  The input
-    cache is not written; the new cache is a copy.
+    cache is not written; the new cache is a copy.  With ``donate`` the
+    new entries are written into the input cache's tensors, which are
+    returned.
 
     ``rules`` with a mesh: ``x``, the weights and the cache are DTensors
     and the block takes the reference's mesh layout (``_attn_mesh``).
@@ -52,7 +57,7 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, window: int | None = None,
     if mesh:
         o, new_cache = _attn_mesh(*(dense(p[n], x) for n in ("wq", "wk", "wv")),
                                   positions, cfg, window, cache, cache_len,
-                                  rules, decode)
+                                  rules, decode, donate)
         # the flat heads keep the heads' layout, so the row-parallel
         # product's gradient comes back in a layout the heads' view takes
         # (an uneven head split has none)
@@ -68,8 +73,8 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, window: int | None = None,
     if decode:
         Smax = cache["k"].shape[1]
         slot = cache_len % Smax
-        kc = _write_slot(cache["k"], k, slot)
-        vc = _write_slot(cache["v"], v, slot)
+        kc = write_slot(cache["k"], k, slot, donate)
+        vc = write_slot(cache["v"], v, slot, donate)
         # ring buffers hold only in-window entries: every written slot valid
         n_valid = torch.clamp(cache_len + 1, max=Smax)
         o = decode_attention(q, kc, vc, n_valid)
@@ -85,10 +90,13 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, window: int | None = None,
                 shift = start % Smax
                 new_cache = {n: torch.roll(t[:, start:], shift, 1).to(
                     cache[n].dtype) for n, t in (("k", k), ("v", v))}
+                if donate:
+                    new_cache = {n: write_into(cache[n], t)
+                                 for n, t in new_cache.items()}
             else:
                 new_cache = {}
                 for n, t in (("k", k), ("v", v)):
-                    buf = cache[n].clone()
+                    buf = cache[n] if donate else cache[n].clone()
                     buf[:, :S] = t
                     new_cache[n] = buf
     out = dense(p["wo"], o.reshape(B, S, Hq * Dh))
@@ -104,7 +112,7 @@ def _tp(rules) -> tuple:
 
 
 def _attn_mesh(q, k, v, positions, cfg, window, cache, cache_len, rules,
-               decode):
+               decode, donate=False):
     """The mesh path of ``attn_block`` after the projections (q, k, v as
     (B, S, heads * Dh)): (o (B, S, Hq, Dh), new cache).
 
@@ -122,6 +130,9 @@ def _attn_mesh(q, k, v, positions, cfg, window, cache, cache_len, rules,
     chunk and attends over its chunk; the softmax's max and sum and the
     P V product are reduced over tp.  At one tp rank this is the
     one-device arithmetic.
+
+    ``donate``: the new entries are written into ``cache``'s local shards
+    (``write_into``, ``write_slot``) and its tensors returned.
     """
     B, S = q.shape[:2]
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -140,7 +151,7 @@ def _attn_mesh(q, k, v, positions, cfg, window, cache, cache_len, rules,
     if decode:
         return _decode_mesh(heads(q, Hq, None), heads(k, Hkv, None),
                             heads(v, Hkv, None), cache, cache_len, cfg,
-                            rules, tp_size, tp_rank)
+                            rules, tp_size, tp_rank, donate)
     hq_ok = Hq % tp_size == 0
     kv_ax = "tp" if Hkv >= tp_size else None
     q = heads(q, Hq, "tp" if hq_ok else None)
@@ -177,21 +188,64 @@ def _attn_mesh(q, k, v, positions, cfg, window, cache, cache_len, rules,
     o = rules.act(o, "dp", None, "tp" if hq_ok else None, None)
     new_cache = None
     if cache is not None:        # prefill: persist the (window-)cache
-        Smax = cache["k"].shape[1]
-        new_cache = {}
-        for n, t in (("k", k), ("v", v)):
-            buf = cache[n]
-            if S >= Smax:
-                start = S - Smax
-                t = torch.roll(t[:, start:], start % Smax, 1).to(buf.dtype)
-            else:
-                t = torch.cat([t.to(buf.dtype), buf[:, S:]], 1)
-            new_cache[n] = t.redistribute(mesh, buf.placements)
+        new_cache = write_prompt_mesh(cache, {"k": k, "v": v}, mesh, donate)
     return o, new_cache
 
 
-def _decode_mesh(q, k, v, cache, cache_len, cfg, rules, tp_size, tp_rank):
-    """Decode on the 2D layout: (o, {"k", "v"} new caches)."""
+def _placed_spec(t) -> P_:
+    """The spec of a DTensor as it is placed."""
+    names = [[] for _ in range(t.ndim)]
+    for name, pl in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if pl.is_shard():
+            names[pl.dim].append(name)
+    return P_(*(tuple(n) for n in names))
+
+
+def write_prompt_mesh(cache: dict, new: dict, mesh, donate: bool) -> dict:
+    """Prefill's cache write on the mesh: the prompt's entries ``new``
+    ({name: (B, S, ...)} DTensors) written into the cache's tensors as
+    they are placed (batch over dp, the sequence over tp or whole), each
+    rank writing its own sequence range of its local shard: positions
+    [0, S), or for a prompt as long as the cache or longer (a ring) its
+    last Smax entries rolled as the one-device path rolls them.  Returns
+    the cache's tensors written in place (``donate``) or new ones.  A
+    prompt as long as the cache enters laid out as the cache is; any
+    other enters whole along the sequence."""
+    out = {}
+    for n, t in new.items():
+        buf = cache[n]
+        S, Smax = t.shape[1], buf.shape[1]
+        cspec = _placed_spec(buf)
+        seq = cspec[1]
+        tspec = P_(cspec[0], seq if S == Smax else None, *cspec[2:])
+        r = axis_index((mesh, seq)) if seq is not None else 0
+
+        def local(bl, tl):
+            tl = tl.to(bl.dtype)
+            s_loc = bl.shape[1]
+            off = r * s_loc
+            bl = bl if donate else bl.clone()
+            if S == Smax:            # tl holds this rank's range
+                bl.copy_(tl)
+            elif S > Smax:           # ring: position j holds the prompt's
+                start = S - Smax     # entry start + (j - start) mod Smax
+                j = torch.arange(off, off + s_loc, device=tl.device)
+                bl.copy_(tl.index_select(1, start + (j - start) % Smax))
+            elif off < S:
+                hi = min(s_loc, S - off)
+                bl[:, :hi] = tl[:, off:off + hi]
+            return bl
+
+        out[n] = shard_map(local, mesh, (cspec, tspec), cspec)(buf, t)
+        if donate:
+            out[n] = write_into(buf, out[n])
+    return out
+
+
+def _decode_mesh(q, k, v, cache, cache_len, cfg, rules, tp_size, tp_rank,
+                 donate=False):
+    """Decode on the 2D layout: (o, {"k", "v"} new caches; with
+    ``donate`` the input cache's tensors, written in place)."""
     mesh = rules.mesh
     cspec = cache_pspecs({"k": cache["k"]}, cfg, rules)["k"]
     seq = cspec[1] is not None
@@ -205,13 +259,9 @@ def _decode_mesh(q, k, v, cache, cache_len, cfg, rules, tp_size, tp_rank):
         s_loc = kc.shape[1]
         Smax = s_loc * tp_size if seq else s_loc
         slot = n % Smax
-        if seq:
-            hit = (torch.arange(s_loc, device=kc.device)
-                   == slot - tp_rank * s_loc)[None, :, None, None]
-            kc = torch.where(hit, kl.to(kc.dtype), kc)
-            vc = torch.where(hit, vl.to(vc.dtype), vc)
-        else:
-            kc, vc = _write_slot(kc, kl, slot), _write_slot(vc, vl, slot)
+        off = tp_rank * s_loc if seq else None
+        kc = write_slot(kc, kl, slot, donate, off)
+        vc = write_slot(vc, vl, slot, donate, off)
         n_valid = torch.clamp(n + 1, max=Smax)
         if not seq or tp_size == 1:
             return decode_attention(ql, kc, vc, n_valid), kc, vc
@@ -221,6 +271,8 @@ def _decode_mesh(q, k, v, cache, cache_len, cfg, rules, tp_size, tp_rank):
     o, kc, vc = shard_map(local, mesh, (rows, rows, rows, cspec, cspec, P_()),
                           (rows, cspec, cspec))(
         q, k, v, cache["k"], cache["v"], cache_len)
+    if donate:
+        kc, vc = write_into(cache["k"], kc), write_into(cache["v"], vc)
     return o, {"k": kc, "v": vc}
 
 
@@ -239,13 +291,6 @@ def _decode_attention_split(q, kc, vc, n_valid, off, axis):
     p = e / psum(e.sum(-1, keepdim=True), axis)
     o = psum(mm32(p.to(vc.dtype), vc, "bhgk,bkhd->bhgd"), axis)
     return o.reshape(B, 1, Hq, vc.shape[-1]).to(q.dtype)
-
-
-def _write_slot(buf: torch.Tensor, x: torch.Tensor,
-                slot: torch.Tensor) -> torch.Tensor:
-    """A copy of ``buf`` with x (B, 1, ...) written at ``slot`` (0-dim
-    tensor, in range) along axis 1."""
-    return buf.index_copy(1, slot.reshape(1).long(), x.to(buf.dtype))
 
 
 def init_attn_cache(cfg, batch: int, max_len: int, dtype, device,

@@ -39,7 +39,8 @@ def exit_logits(model, params, x):
     return model._head(params, x)
 
 
-def decode_step_cascade(model, params, token, cache, ecfg: ExitConfig):
+def decode_step_cascade(model, params, token, cache, ecfg: ExitConfig,
+                        donate: bool = False):
     """Masked (delayed-rejection) cascade decode step.
 
     Runs the full stack (SIMD semantics) but evaluates the exit head after
@@ -47,7 +48,8 @@ def decode_step_cascade(model, params, token, cache, ecfg: ExitConfig):
     confidence clears its threshold.  Returns (logits, new_cache,
     exit_depth (B,) int32).  An exit's threshold is looked up as the
     reference looks it up (``searchsorted`` over ``exit_groups``, clipped),
-    in float32.
+    in float32.  ``donate``: the new cache is ``cache``'s tensors, written
+    in place (``Model.decode_step``'s).
     """
     B = token.shape[0]
     dev = model.device
@@ -74,7 +76,8 @@ def decode_step_cascade(model, params, token, cache, ecfg: ExitConfig):
         state["done"] = state["done"] | fire
 
     x = model._embed(params, token[:, None])
-    x, new_cache, _ = model._stack_walk(params, x, cache, after_group)
+    x, new_cache, _ = model._stack_walk(params, x, cache, after_group,
+                                        donate)
     new_cache["len"] = cache["len"] + 1
     logits = model._head(params, x)
     if state["chosen"] is not None:

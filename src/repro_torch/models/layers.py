@@ -29,7 +29,8 @@ import torch.nn.functional as F
 __all__ = ["ParamRng", "mm32", "activation", "rmsnorm", "layernorm",
            "init_norm", "apply_norm", "rope_freqs", "apply_rope",
            "flash_attention", "attention_reference", "decode_attention",
-           "gated_mlp", "init_gated_mlp", "init_dense", "dense", "NEG_INF"]
+           "gated_mlp", "init_gated_mlp", "init_dense", "dense", "NEG_INF",
+           "write_into", "write_slot"]
 
 NEG_INF = -1e30
 
@@ -70,6 +71,50 @@ def mm32(a: torch.Tensor, b: torch.Tensor, spec: str) -> torch.Tensor:
 def activation(x: torch.Tensor, act: str) -> torch.Tensor:
     """SwiGLU's silu or GeGLU's gelu (``jax.nn.gelu``'s tanh form)."""
     return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
+
+
+# -------------------------------------------------------- donated caches
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def write_into(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``new``'s values written over ``buf`` in place (a DTensor's local
+    shard, ``new`` placed as ``buf`` first); returns ``buf``.  Nothing is
+    copied where ``new`` already is ``buf``'s memory (a writer that wrote
+    in place)."""
+    if hasattr(buf, "device_mesh") and hasattr(new, "device_mesh"):
+        new = new.redistribute(buf.device_mesh, buf.placements)
+    dst, src = _local(buf), _local(new)
+    if not (dst.untyped_storage()._cdata == src.untyped_storage()._cdata
+            and dst.storage_offset() == src.storage_offset()
+            and dst.stride() == src.stride() and dst.shape == src.shape):
+        dst.copy_(src)
+    return buf
+
+
+def write_slot(buf: torch.Tensor, x: torch.Tensor, slot: torch.Tensor,
+               donate: bool = False, off: int | None = None) -> torch.Tensor:
+    """x (B, 1, ...) written at position ``slot`` (a 0-dim integer
+    tensor, in range) along axis 1 of ``buf``: a new tensor, or with
+    ``donate`` ``buf`` itself, written in place.  With ``off``, ``buf``
+    holds positions [off, off + its length) of a sequence split over
+    ranks, and a slot outside them leaves ``buf`` as it was."""
+    x = x.to(buf.dtype)
+    if off is None:
+        idx = slot.reshape(1).long()
+        return (buf.index_copy_(1, idx, x) if donate
+                else buf.index_copy(1, idx, x))
+    rel = slot.reshape(1).long() - off
+    tail = (1,) * (buf.dim() - 2)
+    if not donate:
+        hit = torch.arange(buf.shape[1], device=buf.device) == rel
+        return torch.where(hit.reshape(1, -1, *tail), x, buf)
+    # one slot rewritten: x where it is this rank's, else its old value
+    idx = rel.clamp(0, buf.shape[1] - 1)
+    x = torch.where((rel == idx).reshape(1, 1, *tail), x,
+                    buf.index_select(1, idx))
+    return buf.index_copy_(1, idx, x)
 
 
 # --------------------------------------------------------------------- norms
@@ -164,9 +209,11 @@ def _blockwise_fwd(q, k, v, q0, S, Sk, causal, window, chunk_kv, scale):
     B, Tq, Hk, G, D = q.shape
     Dv = v.shape[-1]
     dev = q.device
-    o = torch.zeros((B, Hk, G, Tq, Dv), dtype=torch.float32, device=dev)
-    m = torch.full((B, Hk, G, Tq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, Hk, G, Tq), dtype=torch.float32, device=dev)
+    # the buffers are made like q (new_*): in a fake tensor mode carried
+    # by q they are fake too, as the reads and writes into them must be
+    o = q.new_zeros((B, Hk, G, Tq, Dv), dtype=torch.float32)
+    m = q.new_full((B, Hk, G, Tq), NEG_INF, dtype=torch.float32)
+    l = q.new_zeros((B, Hk, G, Tq), dtype=torch.float32)
     qf = q.float()
     for kv0 in range(0, k.shape[1], chunk_kv):
         if _hidden(q0, Tq, kv0, chunk_kv, causal, window):
@@ -256,9 +303,12 @@ def _flash_bwd(q, k, v, o, lse, do, causal, window, chunk_q, chunk_kv,
     # per query, (B, Hkv, G, Sp) float32
     lsep = _pad_seq(lse, Sp - S).permute(0, 2, 3, 1)
     delta = torch.einsum("bshgd,bshgd->bhgs", dop.float(), op.float())
-    dq = torch.zeros((B, Sp, Hkv, G, D), dtype=torch.float32, device=q.device)
-    dk = torch.zeros((B, Skp, Hkv, D), dtype=torch.float32, device=q.device)
-    dv = torch.zeros((B, Skp, Hkv, Dv), dtype=torch.float32, device=q.device)
+    # accumulated in place: made like q (new_zeros), so that under a fake
+    # tensor mode carried by q the sums land in fake tensors, not in real
+    # zeros the mode would copy and leave as they were
+    dq = q.new_zeros((B, Sp, Hkv, G, D), dtype=torch.float32)
+    dk = q.new_zeros((B, Skp, Hkv, D), dtype=torch.float32)
+    dv = q.new_zeros((B, Skp, Hkv, Dv), dtype=torch.float32)
     for kv0 in range(0, Skp, ckv):
         ks, vs = kp[:, kv0:kv0 + ckv], vp[:, kv0:kv0 + ckv]
         for q0 in range(0, Sp, cq):

@@ -15,9 +15,10 @@ import torch
 
 from ..distributed.collectives import pmax, psum
 from ..distributed.sharding import GradSpec, shard_map
-from .attn import _tp
+from .attn import _placed_spec, _tp, write_prompt_mesh
 from .layers import (ParamRng, init_dense, dense, init_norm, apply_norm,
-                     apply_rope, flash_attention, mm32, NEG_INF)
+                     apply_rope, flash_attention, mm32, NEG_INF, write_into,
+                     write_slot)
 
 __all__ = ["init_mla", "mla_block", "init_mla_cache"]
 
@@ -96,7 +97,8 @@ def _absorb_q(q, wk, cfg):
     return mm32(q[..., :m.nope_dim], wk, "bhd,lhd->bhl")
 
 
-def _attend_latent(q, q_lat, ckv, k_rope, cache, n, cfg, off=0, axis=None):
+def _attend_latent(q, q_lat, ckv, k_rope, cache, n, cfg, off=0, axis=None,
+                   donate=False):
     """Decode's scores against the latent cache: the new entry written at
     ``n`` clamped to the cache's last slot (as the reference's
     ``dynamic_update_slice`` clamps its start), slots ``<= n`` attended.
@@ -104,7 +106,7 @@ def _attend_latent(q, q_lat, ckv, k_rope, cache, n, cfg, off=0, axis=None):
     Returns (lat (B, H, lora) fp32, new cache).  With ``axis`` the cache
     holds positions [off, off + its length) of a sequence split over the
     axis: the softmax's max and sum and the P·ckv product are reduced over
-    it."""
+    it.  ``donate``: the entry is written into ``cache``'s tensors."""
     m = cfg.mla
     scale = (m.nope_dim + m.rope_dim) ** -0.5
     pos = n.reshape(-1, 1) + torch.arange(1, device=q.device)[None, :]
@@ -112,17 +114,11 @@ def _attend_latent(q, q_lat, ckv, k_rope, cache, n, cfg, off=0, axis=None):
     k_rope = _rope_k(k_rope, pos, cfg)
     s_loc = cache["ckv"].shape[1]
     if axis is None:
-        at = torch.clamp(n, max=s_loc - 1).reshape(1).long()
-        ckv_c = cache["ckv"].index_copy(1, at, ckv.to(cache["ckv"].dtype))
-        kr_c = cache["krope"].index_copy(1, at,
-                                         k_rope.to(cache["krope"].dtype))
+        at, split = torch.clamp(n, max=s_loc - 1), None
     else:
-        at = torch.clamp(n, max=s_loc * _axis_len(axis) - 1)
-        hit = (torch.arange(s_loc, device=q.device) == at - off)[None, :,
-                                                                None]
-        ckv_c = torch.where(hit, ckv.to(cache["ckv"].dtype), cache["ckv"])
-        kr_c = torch.where(hit, k_rope.to(cache["krope"].dtype),
-                           cache["krope"])
+        at, split = torch.clamp(n, max=s_loc * _axis_len(axis) - 1), off
+    ckv_c = write_slot(cache["ckv"], ckv, at, donate, split)
+    kr_c = write_slot(cache["krope"], k_rope, at, donate, split)
     s = (mm32(q_lat.to(ckv_c.dtype), ckv_c, "bhl,btl->bht")
          + mm32(q_rope[:, 0].to(kr_c.dtype), kr_c, "bhr,btr->bht")) * scale
     mask = off + torch.arange(s_loc, device=q.device)[None, :] <= n
@@ -151,11 +147,12 @@ def _values(lat, wv, cfg, dtype):
 
 
 def mla_block(p: dict, x: torch.Tensor, cfg, *, cache=None, cache_len=None,
-              rules=None):
+              rules=None, donate: bool = False):
     """x: (B, S, D) -> (out, new_cache).  Cache = latent (ckv, krope).
 
     Decode writes at ``cache_len`` clamped to the cache's last slot and
-    masks slots ``<= cache_len``.
+    masks slots ``<= cache_len``.  ``donate``: the cache's tensors are
+    written in place and returned.
 
     ``rules`` with a mesh: ``x``, the weights and the cache are DTensors;
     the projections keep their specs' layout (the heads over tp) and the
@@ -173,13 +170,13 @@ def mla_block(p: dict, x: torch.Tensor, cfg, *, cache=None, cache_len=None,
     k_rope = kv_a[..., m.kv_lora:]                       # (B,S,rope)
     if rules is not None:
         return _mla_mesh(p, q, ckv, k_rope, cfg, cache, cache_len, decode,
-                         rules)
+                         rules, donate)
 
     if decode:
         # ---- absorbed path: score against the latent cache directly
         q_lat = _absorb_q(q, p["wk_b"]["w"], cfg)
         lat, new_cache = _attend_latent(q, q_lat, ckv, k_rope, cache,
-                                        cache_len, cfg)
+                                        cache_len, cfg, donate=donate)
         o = _values(lat, p["wv_b"]["w"], cfg, x.dtype)
     else:
         # ---- decompress and flash (MHA: Hkv == H)
@@ -190,13 +187,14 @@ def mla_block(p: dict, x: torch.Tensor, cfg, *, cache=None, cache_len=None,
         if cache is not None:       # prefill: persist the latent cache
             new_cache = {}
             for n, t in (("ckv", ckv), ("krope", k_rope)):
-                buf = cache[n].clone()
+                buf = cache[n] if donate else cache[n].clone()
                 buf[:, :S] = t
                 new_cache[n] = buf
     return dense(p["wo"], o), new_cache
 
 
-def _mla_mesh(p, q, ckv, k_rope, cfg, cache, cache_len, decode, rules):
+def _mla_mesh(p, q, ckv, k_rope, cfg, cache, cache_len, decode, rules,
+              donate=False):
     """``mla_block`` after its shared projections, on the mesh.  The heads
     go over tp where they divide it (``wq_b``, ``wk_b``, ``wv_b`` and
     ``wo`` as their specs place them); the latent ``ckv`` and the rope key
@@ -233,11 +231,8 @@ def _mla_mesh(p, q, ckv, k_rope, cfg, cache, cache_len, decode, rules):
             q, kn, v, k_rope)
         new_cache = None
         if cache is not None:       # prefill: persist the latent cache
-            new_cache = {}
-            for n, t in (("ckv", ckv), ("krope", k_rope)):
-                buf = cache[n]
-                t = torch.cat([t.to(buf.dtype), buf[:, S:]], 1)
-                new_cache[n] = t.redistribute(mesh, buf.placements)
+            new_cache = write_prompt_mesh(
+                cache, {"ckv": ckv, "krope": k_rope}, mesh, donate)
         return dense(p["wo"], rules.act(o, "dp", None, hq)), new_cache
 
     wspec = rules.spec(None, hq)              # (lora, h * d): ZeRO gathered
@@ -247,29 +242,25 @@ def _mla_mesh(p, q, ckv, k_rope, cfg, cache, cache_len, decode, rules):
     seq = any(pl.is_shard(1) for pl in cache["ckv"].placements)
     axis = (mesh, rules.tp) if seq and tp_size > 1 else None
     lat_spec = rules.spec("dp", None, None)
-    cache_spec = {k: _spec_of(t, rules) for k, t in cache.items()}
+    cache_spec = {k: _placed_spec(t) for k, t in cache.items()}
 
     def attend(ql, latl, cl, rl, cc, n):
         off = 0
         if axis is not None:
             off = mesh.get_local_rank(rules.tp) * cc["ckv"].shape[1]
-        return _attend_latent(ql, latl, cl, rl, cc, n, cfg, off, axis)
+        return _attend_latent(ql, latl, cl, rl, cc, n, cfg, off, axis,
+                              donate)
 
     lat, new_cache = shard_map(
         attend, mesh, (whole, lat_spec, whole, whole, cache_spec,
                        rules.spec()),
         (lat_spec, cache_spec))(q, q_lat, ckv, k_rope, cache, cache_len)
+    if donate:
+        new_cache = {k: write_into(cache[k], t) for k, t in new_cache.items()}
     o = shard_map(lambda ll, w: _values(ll, w, cfg, q.dtype), mesh,
                   (rules.spec("dp", hq, None), wspec), heads)(
         lat, p["wv_b"]["w"])
     return dense(p["wo"], o), new_cache
-
-
-def _spec_of(t, rules):
-    """The spec of a cache leaf as placed: (dp, the sequence over tp or
-    not, None)."""
-    seq = any(pl.is_shard(1) for pl in t.placements)
-    return rules.spec("dp", "tp" if seq else None, None)
 
 
 def init_mla_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:

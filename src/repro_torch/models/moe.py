@@ -116,9 +116,11 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg, *, axis_name=None,
                       p["wo"].to(xt.dtype))
     eo = eo * gather_w[..., None].to(eo.dtype)
     D_out = eo.shape[-1]                     # D (1D path) or D_loc (2D)
-    # invalid slots scatter a zero row at their index, as in the reference
-    y = torch.zeros((T, D_out), dtype=eo.dtype, device=x.device).index_add_(
-        0, idx.reshape(-1), eo.reshape(-1, D_out))
+    # invalid slots scatter a zero row at their index, as in the reference;
+    # the sums land in a buffer made like eo (new_zeros), so under a fake
+    # tensor mode carried by eo they are fake too
+    y = eo.new_zeros((T, D_out)).index_add_(0, idx.reshape(-1),
+                                            eo.reshape(-1, D_out))
     if axis_name:
         y = psum(y, axis_name)
     return y.reshape(*lead, D_out), aux

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..distributed.sharding import GradSpec, shard_map
 from .attn import _tp
-from .layers import ParamRng, activation, init_dense, dense
+from .layers import ParamRng, activation, init_dense, dense, write_into
 
 __all__ = ["init_rglru", "rglru_block", "init_rglru_cache"]
 
@@ -99,44 +99,66 @@ def _rglru_scan(log_a: torch.Tensor, bx: torch.Tensor, h0=None):
     return b
 
 
-def _recurrence(p: dict, u: torch.Tensor, cfg, cache, decode: bool):
-    """The conv, the gates and the RG-LRU over ``u`` (B, S, W): (h (B, S,
-    W) fp32, new cache or None).  ``p``: the block's ``conv``, ``gate``
-    and ``lam``; on a mesh each rank's channels (whole heads)."""
-    g = cfg.rglru
-    u, conv_state = _causal_conv(p["conv"], u,
-                                 cache["conv"] if decode else None)
+def _gates(g: dict, u: torch.Tensor):
+    """The gates' pre-activations (r, i) of ``u`` (B, S, W)."""
+    r = _block_linear(g["r"]["blocks"], u) + g["r"]["b"].to(u.dtype)
+    i = _block_linear(g["i"]["blocks"], u) + g["i"]["b"].to(u.dtype)
+    return r, i
 
-    r = _block_linear(p["gate"]["r"]["blocks"], u) \
-        + p["gate"]["r"]["b"].to(u.dtype)
-    i = _block_linear(p["gate"]["i"]["blocks"], u) \
-        + p["gate"]["i"]["b"].to(u.dtype)
-    decay = -g.c * F.softplus(p["lam"])                   # (W,) fp32, < 0
+
+def _gates_slice(g: dict, u: torch.Tensor, c0: int, c1: int):
+    """``_gates`` of channels [c0, c1) from ``u`` over every channel: the
+    block products of the heads those channels meet, then their slice.
+    (Not ``_gates`` on the whole width: a slice's backward adds u's
+    gradients in another order.)"""
+    wh = g["r"]["blocks"].shape[1]
+    h0, h1 = c0 // wh, -(-c1 // wh)
+    part = u[..., h0 * wh:h1 * wh]
+    return tuple(
+        _block_linear(g[n]["blocks"][h0:h1], part)[..., c0 - h0 * wh:
+                                                   c1 - h0 * wh]
+        + g[n]["b"][c0:c1].to(u.dtype) for n in ("r", "i"))
+
+
+def _lru(lam, u, r, i, cfg, h, decode: bool):
+    """The RG-LRU over the conv's output ``u`` (B, S, W) and the gates'
+    pre-activations: (h (B, S, W) fp32, the last state in ``h``'s dtype or
+    None).  ``h``: the carried state (B, W) (decode, prefill) or None."""
+    g = cfg.rglru
+    decay = -g.c * F.softplus(lam)                        # (W,) fp32, < 0
     log_a = decay * torch.sigmoid(r.float())               # (B,S,W)
     gated = torch.sigmoid(i.float()) * u.float()
     bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) \
         * gated
 
     if decode:
-        h_prev = cache["h"].float()                       # (B, W)
-        h = torch.exp(log_a[:, 0]) * h_prev + bx[:, 0]
-        return h[:, None], {"h": h.to(cache["h"].dtype), "conv": conv_state}
-    h0 = cache["h"].float() if cache is not None else None
-    hs = _rglru_scan(log_a, bx, h0)
-    new_cache = None
-    if cache is not None:        # prefill: persist the final state
-        new_cache = {"h": hs[:, -1].to(cache["h"].dtype),
-                     "conv": conv_state}
-    return hs, new_cache
+        h_new = torch.exp(log_a[:, 0]) * h.float() + bx[:, 0]
+        return h_new[:, None], h_new.to(h.dtype)
+    hs = _rglru_scan(log_a, bx, h.float() if h is not None else None)
+    return hs, (hs[:, -1].to(h.dtype) if h is not None else None)
+
+
+def _recurrence(p: dict, u: torch.Tensor, cfg, cache, decode: bool):
+    """The conv, the gates and the RG-LRU over ``u`` (B, S, W): (h (B, S,
+    W) fp32, new cache or None).  ``p``: the block's ``conv``, ``gate``
+    and ``lam``; on a mesh each rank's channels (whole heads)."""
+    u, conv_state = _causal_conv(p["conv"], u,
+                                 cache["conv"] if decode else None)
+    r, i = _gates(p["gate"], u)
+    hs, h = _lru(p["lam"], u, r, i, cfg,
+                 cache["h"] if cache is not None else None, decode)
+    return hs, (None if cache is None else {"h": h, "conv": conv_state})
 
 
 def rglru_block(p: dict, x: torch.Tensor, cfg, *, cache=None,
-                cache_len=None, rules=None):
+                cache_len=None, rules=None, donate: bool = False):
     """x: (B, S, D) -> (out, new_cache).  cache = {'h', 'conv'}.
 
     ``rules`` with a mesh: ``x``, the weights and the cache are DTensors;
     the projections keep their specs' layout (the channels over tp) and
-    the recurrence runs on each rank's channels (``_rglru_mesh``)."""
+    the recurrence runs on each rank's channels (``_rglru_mesh``).
+    ``donate``: the new state is written into the cache's tensors, which
+    are returned."""
     S = x.shape[1]
     decode = cache is not None and S == 1 and cache_len is not None
 
@@ -147,19 +169,28 @@ def rglru_block(p: dict, x: torch.Tensor, cfg, *, cache=None,
         y, hs, new_cache = _rglru_mesh(core, y, u, cfg, cache, decode, rules)
     else:
         hs, new_cache = _recurrence(core, u, cfg, cache, decode)
+    if donate and new_cache is not None:
+        new_cache = {k: write_into(cache[k], t) for k, t in new_cache.items()}
     out = dense(p["out_proj"], (y.float() * hs).to(x.dtype))
     return out, new_cache
 
 
 def _rglru_mesh(p, y, u, cfg, cache, decode, rules):
-    """The recurrence under ``shard_map``: batch over dp and the channels
-    over tp in whole heads, as the specs place the gates' blocks, ``lam``,
-    the conv and the cache (the gates are block-diagonal per head, so
-    channels split only where the heads divide tp; else they stay whole
-    on every tp rank).  Returns (y, h, new cache) with y and h in the
-    channels' layout, for the row-parallel output projection.  Each rank's
-    weight gradients are partial sums over dp."""
-    ch = "tp" if cfg.n_heads % _tp(rules)[0] == 0 else None
+    """The recurrence under ``shard_map``, the batch over dp and the
+    channels over tp, as the specs place ``lam``, the conv and the cache.
+    Returns (y, h, new cache) with y and h in the channels' layout, for
+    the row-parallel output projection.  Each rank's weight gradients are
+    partial sums over dp.
+
+    Where whole heads divide tp, the gates' blocks are split with the
+    channels and one ``shard_map`` runs ``_recurrence`` on each rank's
+    heads.  Else (``recurrentgemma-2b``: 10 heads, tp 16) the blocks stay
+    replicated, as ``enforce_divisibility`` leaves them, and a rank's
+    channels may cut a head: ``_rglru_uneven``."""
+    tp_size, _ = _tp(rules)
+    ch = "tp" if cfg.rglru.width % tp_size == 0 else None
+    if ch and cfg.n_heads % tp_size:
+        return _rglru_uneven(p, y, u, cfg, cache, decode, rules)
     y = rules.act(y, "dp", None, ch)
     u = rules.act(u, "dp", None, ch)
     c = rules.spec(ch)
@@ -186,6 +217,52 @@ def _rglru_mesh(p, y, u, cfg, cache, decode, rules):
         new_cache = {k: t.redistribute(rules.mesh, cache[k].placements)
                      for k, t in new_cache.items()}
     return y, hs, new_cache
+
+
+def _rglru_uneven(p, y, u, cfg, cache, decode, rules):
+    """``_rglru_mesh`` where tp does not divide the heads: the conv and
+    the RG-LRU on each rank's channels (``lam``, the conv and the ``h`` /
+    ``conv`` caches over tp, as the specs place them); the gates' (H, w, w)
+    blocks and biases replicated.  The conv's output is gathered over tp
+    for the gates alone: each rank multiplies the heads its channels meet
+    and keeps its channels (``_gates_slice``).  The replicated blocks' and
+    biases' gradients are partial sums over dp and tp, the gathered
+    input's over tp."""
+    tp_size, tp_rank = _tp(rules)
+    mesh = rules.mesh
+    w_loc = cfg.rglru.width // tp_size
+    c0 = tp_rank * w_loc
+    y = rules.act(y, "dp", None, "tp")
+    u = rules.act(u, "dp", None, "tp")
+    c = rules.spec("tp")
+    rows = rules.spec("dp", None, "tp")
+    whole = rules.spec("dp", None, None)
+    conv_spec = {"w": rules.spec("tp", None), "b": c}
+    state_spec = rows if decode else None
+    uc, conv_state = shard_map(
+        _causal_conv, mesh, (conv_spec, rows, state_spec), (rows, rows),
+        ({k: GradSpec(v, rules.dp) for k, v in conv_spec.items()}, rows,
+         state_spec))(p["conv"], u, cache["conv"] if decode else None)
+    gspec = {n: {"blocks": rules.spec(None, None, None), "b": rules.spec(None)}
+             for n in ("r", "i")}
+    gsum = rules.dp + (rules.tp,)
+    hspec = rules.spec("dp", "tp") if cache is not None else None
+
+    def scan(g, lam, uf, h):
+        r, i = _gates_slice(g, uf, c0, c0 + w_loc)
+        return _lru(lam, uf[..., c0:c0 + w_loc], r, i, cfg, h, decode)
+
+    hs, h = shard_map(
+        scan, mesh, (gspec, c, whole, hspec), (rows, hspec),
+        ({n: {k: GradSpec(v, gsum) for k, v in d.items()}
+          for n, d in gspec.items()}, GradSpec(c, rules.dp),
+         GradSpec(whole, (rules.tp,)), hspec))(
+        p["gate"], p["lam"], rules.act(uc, "dp", None, None),
+        cache["h"] if cache is not None else None)
+    if cache is None:
+        return y, hs, None
+    return y, hs, {k: t.redistribute(mesh, cache[k].placements)
+                   for k, t in (("h", h), ("conv", conv_state))}
 
 
 def init_rglru_cache(cfg, batch: int, dtype, device) -> dict:

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from ..distributed.sharding import GradSpec, shard_map
 from .attn import _tp
-from .layers import ParamRng, init_dense, dense, rmsnorm
+from .layers import ParamRng, init_dense, dense, rmsnorm, write_into
 
 __all__ = ["init_ssd", "ssd_block", "init_ssd_cache"]
 
@@ -142,12 +142,13 @@ def _scan(p: dict, u, Bv, Cv, dt_raw, cfg, cache, decode: bool,
 
 
 def ssd_block(p: dict, x: torch.Tensor, cfg, *, cache=None, cache_len=None,
-              rules=None):
+              rules=None, donate: bool = False):
     """x: (B, S, D) -> (out, new_cache).  cache = {'state', 'conv'}.
 
     ``rules`` with a mesh: ``x``, the weights and the cache are DTensors;
     the projections keep their specs' layout (the heads over tp) and the
-    scan runs on each rank's heads (``_ssd_mesh``)."""
+    scan runs on each rank's heads (``_ssd_mesh``).  ``donate``: the new
+    state is written into the cache's tensors, which are returned."""
     S = x.shape[1]
     decode = cache is not None and S == 1 and cache_len is not None
 
@@ -156,28 +157,66 @@ def ssd_block(p: dict, x: torch.Tensor, cfg, *, cache=None, cache_len=None,
     Bv, Cv, dt = (dense(p[n], x) for n in ("wB", "wC", "wdt"))
     core = {k: p[k] for k in ("conv_x", "A_log", "dt_bias", "D_skip")}
     if rules is not None:
-        return _ssd_mesh(p, core, z, u, Bv, Cv, dt, cfg, cache, decode,
-                         rules)
-    ys, new_cache = _scan(core, u, Bv, Cv, dt, cfg, cache, decode)
-    ys = rmsnorm(ys.to(x.dtype), p["norm"]["scale"])
-    ys = ys * F.silu(z)
-    return dense(p["out_proj"], ys), new_cache
+        out, new_cache = _ssd_mesh(p, core, z, u, Bv, Cv, dt, cfg, cache,
+                                   decode, rules)
+    else:
+        ys, new_cache = _scan(core, u, Bv, Cv, dt, cfg, cache, decode)
+        ys = rmsnorm(ys.to(x.dtype), p["norm"]["scale"])
+        ys = ys * F.silu(z)
+        out = dense(p["out_proj"], ys)
+    if donate and new_cache is not None:
+        new_cache = {k: write_into(cache[k], t) for k, t in new_cache.items()}
+    return out, new_cache
 
 
 def _ssd_mesh(p, core, z, u, Bv, Cv, dt, cfg, cache, decode, rules):
-    """``ssd_block`` after its projections, on the mesh: the scan under
-    ``shard_map`` with the batch over dp and the heads over tp (where they
-    divide it), as the specs place ``conv_x``, ``A_log``, ``dt_bias``,
-    ``D_skip`` and the cache; ``Bv``, ``Cv`` (one group's B and C serve
-    several heads) and ``dt`` replicated over tp, each rank taking its
-    heads' part.  The gated norm runs over the whole inner width (its
-    scale is replicated): the scan's output is gathered over tp for it,
-    then split again for the row-parallel output projection."""
+    """``ssd_block`` after its projections, on the mesh: the scan on each
+    rank's heads (``_scan_mesh``).  The gated norm runs over the whole
+    inner width (its scale is replicated): the scan's output is gathered
+    over tp for it, then split again for the row-parallel output
+    projection."""
+    ch = _heads_axis(cfg, rules)
+    z = rules.act(z, "dp", None, ch)
+    ys, new_cache = _scan_mesh(core, u, Bv, Cv, dt, cfg, cache, decode,
+                               rules)
+    ys = rules.act(ys, "dp", None, None)
+    ys = rmsnorm(ys.to(z.dtype), p["norm"]["scale"])
+    ys = rules.act(ys, "dp", None, ch) * F.silu(z)
+    if new_cache is not None:
+        new_cache = {k: t.redistribute(rules.mesh, cache[k].placements)
+                     for k, t in new_cache.items()}
+    return dense(p["out_proj"], ys), new_cache
+
+
+def _heads_axis(cfg, rules):
+    """"tp" where the SSD heads divide the tp axis (they are split over
+    it), else None."""
+    s = cfg.ssd
+    H = s.expand * cfg.d_model // s.head_dim
+    return "tp" if H % _tp(rules)[0] == 0 else None
+
+
+def _scan_mesh(core, u, Bv, Cv, dt, cfg, cache, decode, rules):
+    """``_scan`` under ``shard_map``: the batch over dp and the heads over
+    tp (where they divide it), as the specs place ``conv_x``, ``A_log``,
+    ``dt_bias``, ``D_skip`` and the cache; ``Bv``, ``Cv`` (one group's B
+    and C serve several heads) and ``dt`` replicated over tp, each rank
+    taking its heads' part.  Returns (y in the heads' layout, new cache as
+    the specs place it).
+
+    The one sum tp reorders here is that of B's and C's gradients over
+    the heads: one device sums each group's heads in order (the backward
+    of ``repeat_interleave``); on the mesh each rank sums its own heads,
+    and the ranks' partial sums are added by an all-reduce over tp, in
+    the collective's grouping.  Summing in one device's order would take
+    a gather of every head's gradient (H / n_groups times the bytes) in
+    place of that all-reduce of partial sums, which is the layout the
+    reference's specs price."""
     tp_size, tp_rank = _tp(rules)
     s = cfg.ssd
     H = s.expand * cfg.d_model // s.head_dim
-    ch = "tp" if H % tp_size == 0 else None
-    z, u = (rules.act(t, "dp", None, ch) for t in (z, u))
+    ch = _heads_axis(cfg, rules)
+    u = rules.act(u, "dp", None, ch)
     Bv, Cv = (rules.act(t, "dp", None, None) for t in (Bv, Cv))
     dt = rules.act(dt, "dp", None, None)
     c = rules.spec(ch)
@@ -199,17 +238,10 @@ def _ssd_mesh(p, core, z, u, Bv, Cv, dt, cfg, cache, decode, rules):
     def local(pp, ul, bl, cl, dl, cc):
         return _scan(pp, ul, bl, cl, dl, cfg, cc, decode, h0)
 
-    ys, new_cache = shard_map(
+    return shard_map(
         local, rules.mesh, (wspec, rows, whole, whole, rows, cspec),
         (rows, cspec), (wgrad, rows, bc_grad, bc_grad, rows, cspec))(
         core, u, Bv, Cv, dt, cache)
-    ys = rules.act(ys, "dp", None, None)
-    ys = rmsnorm(ys.to(z.dtype), p["norm"]["scale"])
-    ys = rules.act(ys, "dp", None, ch) * F.silu(z)
-    if new_cache is not None:
-        new_cache = {k: t.redistribute(rules.mesh, cache[k].placements)
-                     for k, t in new_cache.items()}
-    return dense(p["out_proj"], ys), new_cache
 
 
 def init_ssd_cache(cfg, batch: int, dtype, device) -> dict:

@@ -14,7 +14,9 @@ One ``Model`` covers all ten assigned architectures, as the reference's:
   group under ``torch.utils.checkpoint`` when grad mode is on and
   ``cfg.remat`` is not ``"none"``), ``prefill`` (last logits + cache),
   ``decode_step`` (one token + cache update).  Caches are not written in
-  place: each step returns a new one.
+  place: each step returns a new one, unless the caller donates its cache
+  (``donate=True``: every mixer writes into the cache's tensors and the
+  step returns them; the cache passed in is spent).
 
 Under a mesh (``rules`` from ``distributed.sharding.make_rules``) the
 parameters and caches are DTensors placed by the reference's specs, and
@@ -213,7 +215,7 @@ class Model:
 
     # -------------------------------------------------------------- apply
     def _block(self, p, x, kind: str, cache, cache_len, moe_layer: bool,
-               sp: bool = False):
+               sp: bool = False, donate: bool = False):
         cfg, r = self.cfg, self.rules
         mesh = r.mesh is not None
         seq_ax = "tp" if sp else None
@@ -236,13 +238,14 @@ class Model:
             window = cfg.rglru.window if cfg.rglru is not None else None
             mix, new_cache = attn_mod.attn_block(
                 p["mixer"], h, cfg, window=window, cache=cache,
-                cache_len=cache_len, rules=r if mesh else None)
+                cache_len=cache_len, rules=r if mesh else None,
+                donate=donate)
         elif kind in ("attn", "rglru", "ssd"):
             block = {"attn": mla_mod.mla_block, "rglru": rglru_mod.rglru_block,
                      "ssd": ssd_mod.ssd_block}[kind]
             mix, new_cache = block(p["mixer"], h, cfg, cache=cache,
                                    cache_len=cache_len,
-                                   rules=r if mesh else None)
+                                   rules=r if mesh else None, donate=donate)
         else:
             raise ValueError(kind)
         # the branch output placed as the residual first (under sp a
@@ -369,12 +372,14 @@ class Model:
         return self.rules.act(mm32(x, w.to(x.dtype), "bsd,dv->bsv"),
                               "dp", None, "tp")
 
-    def _stack_walk(self, params, x, cache, after_group=None):
+    def _stack_walk(self, params, x, cache, after_group=None,
+                    donate: bool = False):
         """Run prelude -> scan groups -> postlude.  Returns (x, new_cache,
         aux).  ``after_group(i, x)``, when given, sees the hidden state
         after scan group ``i``.  The forward (no cache) under grad mode
         recomputes each scan group in the backward when ``cfg.remat`` asks
-        for it; prefill and decode never do."""
+        for it; prefill and decode never do.  ``donate``: each block
+        writes its new cache into ``cache``'s tensors."""
         cfg = self.cfg
         cache_len = cache["len"] if cache is not None else None
         # sequence parallelism in the forward (the reference's train mode)
@@ -389,7 +394,7 @@ class Model:
             for j, (p, kind) in enumerate(zip(blocks, kinds)):
                 c = caches[j] if caches is not None else None
                 x, nc, a = self._block(p, x, kind, c, cache_len, moe_layer,
-                                       sp)
+                                       sp, donate)
                 aux = aux + a
                 outs.append(nc)
             return x, aux, outs
@@ -441,19 +446,22 @@ class Model:
         x, _, aux = self._stack_walk(params, x, None)
         return self._head(params, x), aux
 
-    def prefill(self, params, tokens, cache, prefix_embeds=None):
-        """Returns (logits_last (B, 1, V), cache')."""
+    def prefill(self, params, tokens, cache, prefix_embeds=None,
+                donate: bool = False):
+        """Returns (logits_last (B, 1, V), cache').  ``donate``: cache' is
+        ``cache``'s tensors, written in place (and a new ``len``)."""
         x = self._embed(params, tokens, prefix_embeds)
-        x, new_cache, _ = self._stack_walk(params, x, cache)
+        x, new_cache, _ = self._stack_walk(params, x, cache, donate=donate)
         new_cache["len"] = cache["len"] + x.shape[1]
         return self._head(params, x[:, -1:]), new_cache
 
-    def decode_step(self, params, token, cache):
-        """token (B,) int -> (logits (B, 1, V), cache')."""
+    def decode_step(self, params, token, cache, donate: bool = False):
+        """token (B,) int -> (logits (B, 1, V), cache').  ``donate`` as
+        in ``prefill``."""
         x = self._embed(params, token[:, None])
         if self.rules.mesh is not None:
             x = self.rules.act(x, None, None, "dp")     # 2D decode layout
-        x, new_cache, _ = self._stack_walk(params, x, cache)
+        x, new_cache, _ = self._stack_walk(params, x, cache, donate=donate)
         new_cache["len"] = cache["len"] + 1
         return self._head(params, x), new_cache
 

@@ -2,12 +2,16 @@
 
 The moments mirror the parameter tree (nested dicts and lists of
 tensors), in ``moment_dtype`` (float32 by default).  ``adamw_update``
-returns new tensors and leaves its inputs as they were; the global-norm
-clip is folded into the update, and stacked (scan-layer) leaves of at
-least ``CHUNK_MIN_SIZE`` elements are updated one dim-0 slice at a time
-into the new buffers, so the float32 intermediates of one update stay
-O(slice), not O(leaf).  At olmo-1b's full width the stacked MLP leaves
-(16 x 2048 x 8192 = 2^28 elements) take that path.
+returns new tensors and leaves its inputs as they were, or, with
+``donate=True``, writes the new parameters and moments into its inputs'
+tensors (the reference's dry run donates the train state to its jitted
+step).  The global-norm clip is folded into the update, and stacked
+(scan-layer) leaves of at least ``CHUNK_MIN_SIZE`` elements are updated
+one dim-0 slice at a time, each slice written into the new buffers (or
+back into the donated ones) after its own math, so the float32
+intermediates of one update stay O(slice), not O(leaf).  At olmo-1b's
+full width the stacked MLP leaves (16 x 2048 x 8192 = 2^28 elements) take
+that path.
 """
 
 from __future__ import annotations
@@ -71,11 +75,18 @@ def clip_by_global_norm(grads, max_norm: float):
 @torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, max_grad_norm: float = 1.0):
+                 weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+                 donate: bool = False):
     """One AdamW step: ``(params', state', {"grad_norm": gn})``.  ``lr``
     may be a float or a 0-dim tensor (a schedule value).  Weight decay
     skips leaves with ``ndim < 2`` (norms, biases); bias corrections use
-    ``b1 ** t`` in float32."""
+    ``b1 ** t`` in float32.
+
+    ``donate=True``: params' and the moments are ``params``' and
+    ``state``'s own tensors (a DTensor's local shards), written in place
+    with the bits the functional update returns.  The caller gives them
+    up: JAX raises on a donated buffer's later use, the port cannot, and
+    the old tensors simply hold the new values."""
     gn = global_norm(grads)
     scale = _local(_clip_scale(gn, max_grad_norm))
     lr = _local(lr)
@@ -101,6 +112,8 @@ def adamw_update(params, grads, state: AdamWState, lr,
             # parameter's placements); the norm above is global
             out = upd_local(*(t.to_local() for t in (p, g, m, v)),
                             p.dim() >= 2)
+            if donate:
+                return p, m, v
             return tuple(DTensor.from_local(o, t.device_mesh, t.placements,
                                             shape=t.shape, stride=t.stride())
                          for o, t in zip(out, (p, m, v)))
@@ -114,14 +127,20 @@ def adamw_update(params, grads, state: AdamWState, lr,
                 n -= 1
             if n > 1:
                 ck = p.shape[0] // n
-                out = tuple(torch.empty_like(x) for x in (p, m, v))
+                out = ((p, m, v) if donate
+                       else tuple(torch.empty_like(x) for x in (p, m, v)))
                 for i in range(0, p.shape[0], ck):
                     sl = slice(i, i + ck)
                     for buf, new in zip(out, math_(p[sl], g[sl], m[sl],
                                                    v[sl], wd)):
                         buf[sl] = new
                 return out
-        return math_(p, g, m, v, wd)
+        new = math_(p, g, m, v, wd)
+        if donate:
+            for buf, x in zip((p, m, v), new):
+                buf.copy_(x)
+            return p, m, v
+        return new
 
     p_new, m_new, v_new = tree_unzip(
         tree_map(upd, params, grads, state.m, state.v), 3)

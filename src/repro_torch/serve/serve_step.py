@@ -5,7 +5,14 @@ generation loop and cascade early-exit serving).
 token against a KV/recurrent cache of the shape's length.  Every step and
 ``generate`` run under ``torch.no_grad()``: parameters fresh from training
 (which require grad) serve as their detached copies would, and no output
-requires grad."""
+requires grad.
+
+A step made with ``donate=True`` writes the new cache into the tensors of
+the cache it is given and returns them (the reference's dry run donates
+the cache to its jitted step).  The caller gives that cache up: JAX
+raises on a donated buffer's later use, the port cannot, and the old
+cache's tensors simply hold the new entries.  The default returns a new
+cache and leaves the old one as it was."""
 
 from __future__ import annotations
 
@@ -25,21 +32,24 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return vocab_argmax(logits[:, -1].float()).to(torch.int32)
 
 
-def make_prefill_step(model):
+def make_prefill_step(model, *, donate: bool = False):
+    """``prefill_step(params, tokens, cache, prefix_embeds=None) ->
+    (logits, cache)``; ``donate``: ``cache`` is written in place."""
     @torch.no_grad()
     def prefill_step(params, tokens, cache, prefix_embeds=None):
         return model.prefill(params, tokens, cache,
-                             prefix_embeds=prefix_embeds)
+                             prefix_embeds=prefix_embeds, donate=donate)
     return prefill_step
 
 
-def make_decode_step(model, *, sample: bool = False):
+def make_decode_step(model, *, sample: bool = False, donate: bool = False):
     """``decode_step(params, token, cache, rng=None) -> (next, cache,
     logits)``; sampling draws from ``rng``, a ``torch.Generator`` on the
-    model's device."""
+    model's device; ``donate``: ``cache`` is written in place."""
     @torch.no_grad()
     def decode_step(params, token, cache, rng=None):
-        logits, cache = model.decode_step(params, token, cache)
+        logits, cache = model.decode_step(params, token, cache,
+                                          donate=donate)
         if sample:
             probs = torch.softmax(logits[:, -1].float(), -1)
             nxt = torch.multinomial(probs, 1, generator=rng)[:, 0].to(
@@ -50,12 +60,13 @@ def make_decode_step(model, *, sample: bool = False):
     return decode_step
 
 
-def make_cascade_decode_step(model, ecfg):
-    """Early-exit (paper-cascade) decode step; returns exit depths too."""
+def make_cascade_decode_step(model, ecfg, *, donate: bool = False):
+    """Early-exit (paper-cascade) decode step; returns exit depths too.
+    ``donate``: ``cache`` is written in place."""
     @torch.no_grad()
     def decode_step(params, token, cache):
         logits, cache, depth = decode_step_cascade(model, params, token,
-                                                   cache, ecfg)
+                                                   cache, ecfg, donate)
         return _greedy(logits), cache, depth
     return decode_step
 

@@ -6,7 +6,9 @@ tensor on the device, and the schedule, the clip and the update are tensor
 operations.  Remat comes from the config (``remat="block"`` recomputes
 each scan group in the backward; ``Model.forward`` applies it under grad
 mode).  A step returns a new ``TrainState`` and leaves the one it was
-given as it was."""
+given as it was; a step made with ``donate=True`` writes the new
+parameters and moments into the given state's tensors instead (see
+``adamw_update``): that state is spent."""
 
 from __future__ import annotations
 
@@ -129,12 +131,15 @@ def batch_grads(model, params, batch: dict, *, microbatch: int = 0,
 def make_train_step(model, *, peak_lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10000, weight_decay: float = 0.1,
                     microbatch: int = 0, aux_weight: float = 1.0,
-                    compress_grads=None, accum_dtype=torch.float32):
+                    compress_grads=None, accum_dtype=torch.float32,
+                    donate: bool = False):
     """Returns ``train_step(state, batch) -> (state', metrics)``.
 
     ``compress_grads``: optional fn(grads) -> grads between accumulation
     and the optimizer (``distributed.compression.make_compressor``).  The
-    learning rate is ``cosine_schedule(state.step)``.
+    learning rate is ``cosine_schedule(state.step)``.  ``donate``: state'
+    holds ``state``'s parameter and moment tensors, updated in place (the
+    step counters are new 0-dim tensors); ``state`` is spent.
     """
 
     def train_step(state: TrainState, batch: dict):
@@ -146,7 +151,8 @@ def make_train_step(model, *, peak_lr: float = 3e-4, warmup: int = 100,
             grads = compress_grads(grads)
         lr = cosine_schedule(state.step, peak_lr, warmup, total_steps)
         params, opt, om = adamw_update(state.params, grads, state.opt, lr,
-                                       weight_decay=weight_decay)
+                                       weight_decay=weight_decay,
+                                       donate=donate)
         metrics.update(om)
         metrics["lr"] = lr
         return TrainState(params, opt, state.step + 1), metrics

@@ -60,6 +60,7 @@ DECODE_STEPS = 3
 LOSS_TOL, PARAM_TOL = 1e-4, 5e-3          # tests/test_distributed.py:77-78
 MOE_ERR, AUX_ERR = 5e-4, 5e-3             # tests/test_distributed.py:111-114
 LOGIT_ATOL = 2e-3                         # test_torch_lm_models.py's bound
+UNEVEN_HEADS = 5
 TRAIN_LOOP = dict(steps=6, batch=4, seq=16, lr=1e-3, ckpt_every=2,
                   log_every=100)
 
@@ -224,6 +225,99 @@ def _serve_archs_case(rules, prompt):
     return out
 
 
+DONATE_ARCHS = ("olmo-1b", "deepseek-v2-236b")
+DONATE_CACHE = 16
+
+
+def _donate_case(rules, prompt):
+    """Prefill and decode on the mesh with ``donate=True`` and without,
+    for olmo (a KV cache) and deepseek (MLA's latent cache), both with
+    their sequence split over tp (16 positions, 4 per rank): a 6-token
+    prompt and 6 decode steps (the prompt spans two ranks' chunks, the
+    steps write into two), and a 16-token prompt (the dry run's prefill
+    cells: the prompt fills the cache).  Per case: the entries of the
+    logits and the final cache that differ between the two runs, and
+    whether the donated run's cache tensors kept their local storage.
+    Also the peak extra bytes of writing a 16-token prompt replicated
+    over tp into MLA's cache in place (``write_prompt_mesh``, counted by
+    ``LocalCost``), beside one cache leaf's local bytes."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import distribute, placements
+    from repro_torch.launch.roofline import LocalCost
+    from repro_torch.models import Model
+    from repro_torch.models.attn import write_prompt_mesh
+    from repro_torch.tree import tree_leaves
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    mesh = rules.mesh
+    out = {}
+    for arch in DONATE_ARCHS:
+        cfg = get_smoke_config(arch)
+        if cfg.moe is not None:
+            cfg = cfg.with_(moe=replace(cfg.moe, capacity_factor=16.0))
+        model = Model(cfg, "cpu", rules)
+        params = _sharded(model, model.init(torch.Generator().manual_seed(0)))
+        for S, steps in ((6, 6), (DONATE_CACHE, 0)):
+            tokens = np.resize(prompt, (prompt.shape[0], S))
+            runs = []
+            for donate in (False, True):
+                cache = model.init_cache(prompt.shape[0], DONATE_CACHE)
+                held = [t for t in tree_leaves(cache) if t.dim() > 0]
+                ptrs = [t.to_local().data_ptr() for t in held]
+                lg, new = model.prefill(
+                    params, _rows({"t": torch.from_numpy(tokens)},
+                                  rules)["t"], cache, donate=donate)
+                logits = [_full(lg)]
+                for _ in range(steps):
+                    nxt = distribute_tensor(
+                        torch.from_numpy(logits[-1][:, -1].argmax(-1)),
+                        mesh, [Replicate()] * mesh.ndim)
+                    lg, new = model.decode_step(params, nxt, new,
+                                                donate=donate)
+                    logits.append(_full(lg))
+                mine = [t for t in tree_leaves(new) if t.dim() > 0]
+                runs.append((logits + [_full(t) for t in mine],
+                             all(a is b and a.to_local().data_ptr() == p
+                                 for a, b, p in zip(held, mine, ptrs))))
+            (plain, _), (donated, aliased) = runs
+            out[(arch, S)] = {
+                "differ": sum(int((a != b).sum())
+                              for a, b in zip(plain, donated)),
+                "entries": sum(a.size for a in plain),
+                "aliased": aliased}
+    cfg = get_smoke_config("deepseek-v2-236b")
+    cache = Model(cfg, "cpu", rules).init_cache(prompt.shape[0],
+                                                DONATE_CACHE)
+    layer = _first_with(cache, "ckv")
+    layer = {k: layer[k] for k in ("ckv", "krope")}
+    g = torch.Generator().manual_seed(1)
+    new = {k: distribute_tensor(torch.randn(t.shape, generator=g).to(
+        t.dtype), mesh, placements(rules.spec("dp", None, None), mesh))
+        for k, t in layer.items()}
+    locals_ = [t.to_local() for t in (*layer.values(), *new.values())]
+    cost = LocalCost(None, locals_)
+    base = cost.now
+    with cost:
+        write_prompt_mesh(layer, new, mesh, True)
+    out["write_temp"] = cost.peak - base
+    out["leaf_bytes"] = max(t.to_local().nbytes for t in layer.values())
+    out["written"] = all(torch.equal(layer[k].full_tensor(),
+                                     new[k].full_tensor()) for k in layer)
+    return out
+
+
+def _first_with(tree, key):
+    """The first dict in ``tree`` (nested dicts / lists) that has ``key``."""
+    if isinstance(tree, dict) and key in tree:
+        return tree
+    subs = tree.values() if isinstance(tree, dict) else (
+        tree if isinstance(tree, list) else ())
+    for sub in subs:
+        found = _first_with(sub, key)
+        if found is not None:
+            return found
+    return None
+
+
 def _archs_case(rules):
     """Every smoke architecture's batch gradients on the mesh and on one
     device (the port's; one device is held against the reference by
@@ -276,6 +370,185 @@ def _tensor(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
+def _uneven_rglru_config():
+    """RecurrentGemma's smoke config with 5 heads of 16 channels: tp 2 and
+    4 split the 80 channels but not the heads (``recurrentgemma-2b``: 10
+    heads of 256, tp 16)."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("recurrentgemma-2b")
+    return cfg.with_(n_heads=UNEVEN_HEADS,
+                     rglru=replace(cfg.rglru, width=UNEVEN_HEADS * 16))
+
+
+def _one_function_recurrence(p, u, cfg, cache, decode: bool):
+    """``rglru._recurrence`` written as one function (the conv, the gates
+    and the RG-LRU inline): where whole heads divide tp, the mesh's bits
+    are held against it."""
+    from repro_torch.models import rglru as rg
+    g = cfg.rglru
+    u, conv_state = rg._causal_conv(p["conv"], u,
+                                    cache["conv"] if decode else None)
+    r = rg._block_linear(p["gate"]["r"]["blocks"], u) \
+        + p["gate"]["r"]["b"].to(u.dtype)
+    i = rg._block_linear(p["gate"]["i"]["blocks"], u) \
+        + p["gate"]["i"]["b"].to(u.dtype)
+    decay = -g.c * torch.nn.functional.softplus(p["lam"])
+    log_a = decay * torch.sigmoid(r.float())
+    gated = torch.sigmoid(i.float()) * u.float()
+    bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) \
+        * gated
+    if decode:
+        h = torch.exp(log_a[:, 0]) * cache["h"].float() + bx[:, 0]
+        return h[:, None], {"h": h.to(cache["h"].dtype), "conv": conv_state}
+    hs = rg._rglru_scan(log_a, bx, cache["h"].float()
+                        if cache is not None else None)
+    if cache is None:
+        return hs, None
+    return hs, {"h": hs[:, -1].to(cache["h"].dtype), "conv": conv_state}
+
+
+def _rglru_serve_and_grads(cfg, rules, prompt):
+    """Prefill + ``DECODE_STEPS`` logits and one batch's gradients of
+    ``cfg`` on the mesh and on one device (seed-0 weights, one device's
+    tokens fed to both), the mesh's caches' placements and its one-device
+    gradients' float32 sensitivity (as ``_archs_case``)."""
+    from repro_torch.models import Model
+    from repro_torch.train.train_step import batch_grads
+    from repro_torch.tree import tree_leaves, tree_map
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    mesh = rules.mesh
+    one, sharded = Model(cfg, "cpu"), Model(cfg, "cpu", rules)
+    params = one.init(torch.Generator().manual_seed(0))
+    placed = _sharded(sharded, params)
+    runs, fed = [], []
+    for model, p, tok in ((one, params, torch.from_numpy(prompt)),
+                          (sharded, placed,
+                           _rows({"t": torch.from_numpy(prompt)},
+                                 rules)["t"])):
+        cache = model.init_cache(prompt.shape[0],
+                                 prompt.shape[1] + DECODE_STEPS + 1)
+        lg, cache = model.prefill(p, tok, cache)
+        steps = [_tensor(lg)]
+        for i in range(DECODE_STEPS):
+            if model is one:
+                fed.append(torch.argmax(steps[-1][:, -1], -1))
+            nxt = fed[i]
+            if model is sharded:
+                nxt = distribute_tensor(nxt, mesh, [Replicate()] * mesh.ndim)
+            lg, cache = model.decode_step(p, nxt, cache)
+            steps.append(_tensor(lg))
+        runs.append(steps)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 17)).astype(np.int32))}
+    g1, m1 = batch_grads(one, params, batch)
+    g2, m2 = batch_grads(sharded, placed, _rows(batch, rules))
+    noise = torch.Generator().manual_seed(1)
+    nudged = tree_map(lambda t: t * (1 + 2.0 ** -23 * torch.randn(
+        t.shape, generator=noise)), params)
+    g3, _ = batch_grads(one, nudged, batch)
+
+    def rel(g, h):
+        return max(float((a - _tensor(b)).abs().max()
+                         / a.abs().max().clamp_min(1e-30))
+                   for a, b in zip(tree_leaves(g), tree_leaves(h)))
+
+    mix = placed["scan"][0]["mixer"]
+    state = cache["scan"][0][0]
+    return {"logits": [t.numpy() for t in runs[1]],
+            "logit_err": max(float((a - b).abs().max())
+                             for a, b in zip(*runs)),
+            "grads": [_tensor(t).numpy() for t in tree_leaves(g2)],
+            "d_loss": abs(float(m1["loss"]) - float(m2["loss"])),
+            "grad_rel": rel(g1, g2), "sensitivity": rel(g1, g3),
+            "placements": {
+                "lam": mix["lam"].placements,
+                "conv.w": mix["conv"]["w"].placements,
+                "gate.blocks": mix["gate"]["r"]["blocks"].placements,
+                "h": state["h"].placements,
+                "conv": state["conv"].placements}}
+
+
+def _rglru_case(rules, prompt):
+    """RG-LRU on the mesh.  Heads tp does not divide
+    (``_uneven_rglru_config``): what ``_rglru_serve_and_grads`` gives, and
+    the width each call of the RG-LRU saw (spied).  Heads tp divides (the
+    smoke config): logits and gradients with the recurrence as it is and
+    as one function (``_one_function_recurrence``)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import rglru as rg
+    widths = []
+    lru = rg._lru
+
+    def spied(lam, u, *a):
+        widths.append(u.shape[-1])
+        return lru(lam, u, *a)
+
+    rg._lru = spied
+    try:
+        out = {"uneven": _rglru_serve_and_grads(_uneven_rglru_config(),
+                                                rules, prompt)}
+    finally:
+        rg._lru = lru
+    out["uneven"]["widths"] = widths
+    cfg = get_smoke_config("recurrentgemma-2b")
+    out["even"] = _rglru_serve_and_grads(cfg, rules, prompt)
+    recurrence = rg._recurrence
+    rg._recurrence = _one_function_recurrence
+    try:
+        out["even_one_function"] = _rglru_serve_and_grads(cfg, rules, prompt)
+    finally:
+        rg._recurrence = recurrence
+    return out
+
+
+def _ssd_term_inputs():
+    """mamba2's smoke SSD: layer 0's scan parameters (seed-0 weights) and
+    numpy-seeded u, B, C, dt and a cotangent on the scan's output, as
+    numpy arrays; 4 sequences of 24 steps (two chunks of 16)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    cfg = get_smoke_config("mamba2-780m")
+    s = cfg.ssd
+    din = s.expand * cfg.d_model
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    mix = params["scan"][0]["mixer"]
+    out = {"conv_x.w": mix["conv_x"]["w"][0], "conv_x.b": mix["conv_x"]["b"][0]}
+    out.update({k: mix[k][0] for k in ("A_log", "dt_bias", "D_skip")})
+    out = {k: v.detach().numpy() for k, v in out.items()}
+    rng = np.random.default_rng(4)
+    B, S = 4, 24
+    for k, shape in (("u", (B, S, din)),
+                     ("Bv", (B, S, s.n_groups * s.d_state)),
+                     ("Cv", (B, S, s.n_groups * s.d_state)),
+                     ("dt", (B, S, din // s.head_dim)), ("ct", (B, S, din))):
+        out[k] = rng.standard_normal(shape).astype(np.float32)
+    return cfg, out
+
+
+def _ssd_core(t):
+    return {"conv_x": {"w": t["conv_x.w"], "b": t["conv_x.b"]},
+            **{k: t[k] for k in ("A_log", "dt_bias", "D_skip")}}
+
+
+def _ssd_term_case(rules):
+    """The SSD scan alone on the mesh (``ssd._scan_mesh``): its inputs
+    (``_ssd_term_inputs``) as replicated DTensor leaves, the cotangent on
+    its output; every input's gradient, gathered whole."""
+    from repro_torch.models import ssd
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    cfg, arrays = _ssd_term_inputs()
+    mesh = rules.mesh
+    whole = [Replicate()] * mesh.ndim
+    leaves = {k: distribute_tensor(torch.from_numpy(v), mesh, whole)
+              .requires_grad_() for k, v in arrays.items() if k != "ct"}
+    ys, _ = ssd._scan_mesh(_ssd_core(leaves), leaves["u"], leaves["Bv"],
+                           leaves["Cv"], leaves["dt"], cfg, None, False,
+                           rules)
+    ys.backward(distribute_tensor(torch.from_numpy(arrays["ct"]), mesh,
+                                  ys.placements))
+    return {k: t.grad.full_tensor().numpy() for k, t in leaves.items()}
+
+
 def _world_a(rank, world, store, ref, ckpt_dir, out_path):
     _init(rank, world, store)
     from repro_torch.configs import get_smoke_config
@@ -294,7 +567,10 @@ def _world_a(rank, world, store, ref, ckpt_dir, out_path):
                             ref["prompt"], ref["x2d"]),
            "generate": _generate_case(rules, ref["prompt"]),
            "serve_archs": _serve_archs_case(rules, ref["prompt"]),
-           "archs": _archs_case(rules)}
+           "archs": _archs_case(rules),
+           "rglru": _rglru_case(rules, ref["prompt"]),
+           "ssd_term": _ssd_term_case(rules),
+           "donate": _donate_case(rules, ref["prompt"])}
     line = make_mesh((8,), ("d",), device="cpu")
     row = torch.from_numpy(ref["psum_x"][rank:rank + 1])
     got = compressed_psum(row, (line, "d"))
@@ -341,7 +617,8 @@ def _world_b(rank, world, store, dirs, out_path):
     rules = make_rules(make_smoke_mesh(4, 2, device="cpu"))
     like = Model(cfg, "meta").init()
     asked = shardings_for(like, rules)
-    out = {}
+    out = {"rglru": _rglru_case(rules, dirs["prompt"]),
+           "ssd_term": _ssd_term_case(rules)}
     for name in ("reference", "port"):
         got, step, _ = restore_checkpoint(dirs[name], like, shardings=asked)
         leaves = _flatten(got)
@@ -490,7 +767,8 @@ def results():
     _run_world(_world_a, 8, ref, port_ckpt, os.path.join(work, "a.pkl"))
     _run_world(_world_b, 8, {"reference": os.path.join(work, "ref_ckpt"),
                              "port": port_ckpt,
-                             "uneven": os.path.join(work, "uneven_ckpt")},
+                             "uneven": os.path.join(work, "uneven_ckpt"),
+                             "prompt": ref["prompt"]},
                os.path.join(work, "b.pkl"))
     _run_world(_world_c, 4, os.path.join(work, "loop_ckpt"),
                os.path.join(work, "c.pkl"))
@@ -599,6 +877,139 @@ def test_tensor_parallel_mixers_serve_on_the_mesh_as_on_one_device(
     over tp): prefill and decode logits within the logits' bound."""
     err = results[0]["a"]["serve_archs"][arch]
     assert err < LOGIT_ATOL, err
+
+
+@pytest.mark.parametrize("world", ["a", "b"])
+def test_rglru_channels_split_over_tp_where_heads_do_not_divide(results,
+                                                                world):
+    """(2, 4) and (4, 2) with 5 heads of 16 channels (tp splits the
+    channels, not the heads, as for ``recurrentgemma-2b``'s 10 heads on tp
+    16): ``lam``, the conv and the ``h`` / ``conv`` caches are sharded over
+    tp and the gates' blocks replicated, as the reference's specs place
+    them; the RG-LRU runs on 80 / tp channels on the mesh (and on 80 on
+    one device: the spy saw both widths and no other); prefill and decode
+    logits within ``LOGIT_ATOL`` of one device's, the loss within the
+    reference's bound and the gradients within the archs test's bound."""
+    from torch.distributed.tensor import Replicate, Shard
+    tp = {"a": 4, "b": 2}[world]
+    r = results[0][world]["rglru"]["uneven"]
+    assert r["placements"] == {
+        "lam": (Replicate(), Shard(1)), "conv.w": (Replicate(), Shard(1)),
+        "gate.blocks": (Replicate(), Replicate()),
+        "h": (Shard(0), Shard(1)), "conv": (Shard(0), Shard(2))}
+    assert set(r["widths"]) == {UNEVEN_HEADS * 16,
+                                UNEVEN_HEADS * 16 // tp}
+    assert r["logit_err"] < LOGIT_ATOL, r["logit_err"]
+    assert r["d_loss"] < LOSS_TOL
+    assert r["grad_rel"] < max(1e-4, 4 * r["sensitivity"]), r
+
+
+@pytest.mark.parametrize("world", ["a", "b"])
+def test_rglru_where_heads_divide_tp_keeps_its_bits(results, world):
+    """Whole heads over tp (the smoke config's 4 heads on tp 4 and 2): the
+    mesh's logits and gradients equal, bit for bit, those of the
+    recurrence written as one function."""
+    r = results[0][world]["rglru"]
+    got, want = r["even"], r["even_one_function"]
+    for key in ("logits", "grads"):
+        assert len(got[key]) == len(want[key])
+        for a, b in zip(got[key], want[key]):
+            np.testing.assert_array_equal(a, b)
+
+
+def _ssd_grads(h0: int, n: int, rows: slice = slice(None)) -> dict:
+    """One device: the gradients of ``_ssd_term_inputs`` through ``_scan``
+    of heads [h0, h0 + n) on the batch ``rows`` (their channels, their
+    dt, their parameters; B and C whole) under the cotangent's part for
+    those heads and rows: what one rank of the mesh computes."""
+    from repro_torch.models import ssd
+    cfg, arrays = _ssd_term_inputs()
+    t = {k: torch.from_numpy(v).requires_grad_() for k, v in arrays.items()
+         if k != "ct"}
+    ch = slice(h0 * cfg.ssd.head_dim, (h0 + n) * cfg.ssd.head_dim)
+    hs = slice(h0, h0 + n)
+    core = _ssd_core({"conv_x.w": t["conv_x.w"][ch],
+                      "conv_x.b": t["conv_x.b"][ch],
+                      **{k: t[k][hs] for k in ("A_log", "dt_bias",
+                                               "D_skip")}})
+    y, _ = ssd._scan(core, t["u"][rows, :, ch], t["Bv"][rows],
+                     t["Cv"][rows], t["dt"][rows, :, hs], cfg, None, False,
+                     h0)
+    y.backward(torch.from_numpy(arrays["ct"][rows, :, ch]))
+    return {k: v.grad.numpy() for k, v in t.items()}
+
+
+@pytest.mark.parametrize("world", ["a", "b"])
+def test_ssd_b_and_c_gradients_are_the_sum_tp_reorders(results, world):
+    """mamba2's SSD scan alone (``ssd._scan_mesh``) on (2, 4) and (4, 2),
+    held against what each rank computes, run on one device
+    (``_ssd_grads`` of its batch rows and heads).  u's and dt's gradients
+    are the ranks' own entries, bit for bit: no sum across ranks.  B's and
+    C's gradients are the one sum tp reorders: one device adds the heads
+    in order (``repeat_interleave``'s backward); the mesh adds each rank's
+    heads, then the ranks' partial sums in an all-reduce over tp.  On
+    (4, 2) two partial sums add in one addition, exactly, so the mesh's B
+    and C gradients equal the ranks' partial sums added, bit for bit; on
+    (2, 4) the collective groups four partial sums its own way, within the
+    reordering bound of a four-term sum (2 (tp - 1) float32 epsilons of
+    the sum of their magnitudes).  One device's B and C gradients are its
+    heads' terms added in head order, bit for bit."""
+    got = results[0][world]["ssd_term"]
+    cfg, _ = _ssd_term_inputs()
+    s = cfg.ssd
+    H = s.expand * cfg.d_model // s.head_dim
+    dp, tp = {"a": (2, 4), "b": (4, 2)}[world]
+    nb, nh, P = 4 // dp, H // tp, s.head_dim
+    ranks = [[_ssd_grads(t * nh, nh, slice(d * nb, (d + 1) * nb))
+              for t in range(tp)] for d in range(dp)]
+    for k, width in (("u", nh * P), ("dt", nh)):
+        own = np.concatenate([np.concatenate(
+            [ranks[d][t][k][d * nb:(d + 1) * nb, :,
+                            t * width:(t + 1) * width] for t in range(tp)],
+            -1) for d in range(dp)], 0)
+        np.testing.assert_array_equal(got[k], own)
+    eps = np.finfo(np.float32).eps
+    one = _ssd_grads(0, H)
+    heads = [_ssd_grads(h, 1) for h in range(H)]
+    for k in ("Bv", "Cv"):
+        in_order = heads[0][k]
+        for h in heads[1:]:
+            in_order = in_order + h[k]
+        np.testing.assert_array_equal(one[k], in_order)
+        for d in range(dp):
+            rows = slice(d * nb, (d + 1) * nb)
+            parts = [ranks[d][t][k][rows] for t in range(tp)]
+            if tp == 2:
+                np.testing.assert_array_equal(got[k][rows],
+                                              parts[0] + parts[1])
+            seq = parts[0]
+            for x in parts[1:]:
+                seq = seq + x
+            bound = 2 * (tp - 1) * eps * sum(np.abs(x) for x in parts)
+            assert (np.abs(got[k][rows] - seq) <= bound).all()
+
+
+@pytest.mark.parametrize("arch", DONATE_ARCHS)
+@pytest.mark.parametrize("prompt_len", [6, DONATE_CACHE])
+def test_donated_mesh_serving_equals_the_functional_bits(results, arch,
+                                                         prompt_len):
+    """On (2, 4), the cache's sequence split over tp: prefill (and, for
+    the short prompt, 6 decode steps writing into two ranks' chunks) with
+    ``donate=True`` give the functional mesh run's logits and final cache
+    bit for bit, in the cache's own tensors and storage."""
+    r = results[0]["a"]["donate"][(arch, prompt_len)]
+    assert r["entries"] > 0 and r["differ"] == 0, r
+    assert r["aliased"], r
+
+
+def test_donated_mesh_prefill_writes_each_ranks_range_in_place(results):
+    """A prompt as long as MLA's latent cache, replicated over tp, is
+    written into each rank's local shard: the write's extra bytes are at
+    most one cache leaf's local shard (where building the new cache and
+    laying it out would hold it twice), and the cache holds the prompt."""
+    r = results[0]["a"]["donate"]
+    assert r["written"]
+    assert r["write_temp"] <= r["leaf_bytes"], r
 
 
 def test_generate_on_the_mesh_gives_one_devices_tokens(results):

@@ -12,9 +12,15 @@ one process (no process group except a fake one in one test):
   every cell, exactly;
 - ``CollectiveCounter`` on a fake 8-rank world gives the reference HLO
   parser's totals for the same collectives run eagerly;
+- ``LocalCost`` on a two-matmul step of fake tensors: 2 m n k FLOPs per
+  product, each product's operand and output bytes, the peak of what is
+  held, a buffer written in place counted once;
 - dry-run cells in subprocesses (olmo on both meshes; MLA, RG-LRU and
   SSD decode on (16, 16)): ``ok``, their argument bytes the sum of their
-  inputs' local shards.
+  inputs' local shards, ``flops`` and ``bytes_accessed`` counted (numbers,
+  also under the roofline's ``xla_*_per_device`` keys), and the donated
+  KV cache counted once (olmo: the step's temporaries less than the
+  cache's local bytes).
 """
 
 import functools
@@ -285,9 +291,30 @@ def test_param_count_under_a_fake_tensor_mode():
         assert t_cells._moment_dtype(cfg) == torch.float32
 
 
+def test_local_cost_counts_a_two_matmul_step():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    fake = FakeTensorMode()
+    m, k, n, p = 8, 16, 32, 4
+    with fake:
+        a, b, c = (torch.empty(m, k), torch.empty(k, n), torch.empty(n, p))
+    cost = t_roof.LocalCost(fake, [a, b, c])
+    with cost:
+        ab = a @ b
+        abc = ab @ c
+        abc.mul_(2.0)
+    f32 = 4
+    assert cost.flops == 2 * m * k * n + 2 * m * n * p
+    assert cost.bytes_accessed == f32 * ((m * k + k * n + m * n)
+                                         + (m * n + n * p + m * p)
+                                         + 2 * m * p)
+    assert cost.peak == f32 * (m * k + k * n + n * p + m * n + m * p)
+
+
 def _check_dryrun_cell(tmp_path, arch, mesh):
     """``arch`` x ``decode_32k`` on ``mesh`` in a subprocess: ``ok``, its
-    argument bytes the sum of its inputs' local shards."""
+    argument bytes the sum of its inputs' local shards; its local FLOPs
+    and bytes accessed counted; with a full KV cache (olmo), the donated
+    cache counted once."""
     out = tmp_path / "cell.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
@@ -329,7 +356,9 @@ def _check_dryrun_cell(tmp_path, arch, mesh):
         t_sh.tree_map_with_path(one, tree)
 
     add(t_sh.param_pspecs(params, rules), params)
+    before = total
     add(t_sh.cache_pspecs(cache, cfg, rules), cache)
+    cache_bytes = total - before
     dp = int(np.prod(sizes[:-1]))
     total += spec.global_batch * 4 // dp            # the token, over dp
     assert cell["memory"]["argument_size_in_bytes"] == total
@@ -337,5 +366,12 @@ def _check_dryrun_cell(tmp_path, arch, mesh):
     roof = cell["roofline"]
     assert roof["analytic_flops"] == t_roof.analytic_cost(cfg, spec)["flops"]
     assert roof["collective_bytes_per_device"] == cell["collective_bytes"] > 0
+    assert isinstance(cell["flops"], float) and cell["flops"] > 0
+    assert isinstance(cell["bytes_accessed"], float)
+    assert cell["bytes_accessed"] > cell["memory"]["argument_size_in_bytes"]
+    assert roof["xla_flops_per_device"] == cell["flops"]
+    assert roof["xla_bytes_per_device"] == cell["bytes_accessed"]
+    if arch == "olmo-1b":
+        assert cell["memory"]["temp_size_in_bytes"] < cache_bytes
     assert set(cell["collective_ops"]) <= {"all-gather", "all-reduce",
                                            "reduce-scatter", "all-to-all"}
