@@ -165,6 +165,14 @@ nothing of the reference package ``repro``.  Phases, each fatal on failure:
    == detect: True`` for every frame) (``check_examples``).  Its launches
    are counted and not required: the examples' detectors keep
    ``EngineConfig``'s default ``use_pallas=False``.
+14. the static checks: ``python -m repro_torch.analysis`` with its default
+   paths (the port's package, ``tests/test_torch_*.py``,
+   ``examples/torch_*.py``, ``scripts/port_*.py`` and this file) in a
+   subprocess from the repository root: exit code 0, the files scanned,
+   the suppressed findings by rule, the gate's seconds and the subprocess's
+   wall seconds, and the kernel / twin pairs its ``KERNEL_REF_TWIN`` reads
+   from ``kernels/ops.py`` (``check_analysis``).  The gate runs on the
+   host: this phase launches none of S, A, B, C, D.
 
 Every path driven on the card runs with the launch counts set to 0 just
 before it and read just after: each must have launched the kernels of its
@@ -180,7 +188,8 @@ must not (no engine, service or fleet path launches D; no stream,
 service or fleet path B; an incremental frame no dense kernel; lm, the
 whole LM phase, none of the five; lm_train, the whole training phase,
 none of the five; lm_mesh, the whole mesh phase, none of the five;
-examples, the five examples, any).
+examples, the five examples, any; analysis, the static checks, none of the
+five).
 
 Device times come from ``profiled_ms``, which divides a trace's device
 time by the launches the trace holds, not by the calls requested.
@@ -188,7 +197,7 @@ time by the launches the trace holds, not by the calls requested.
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, one ``{"stream": {...}}``, ``{"service": {...}}``, ``{"fleet":
 {...}}``, ``{"training": {...}}``, ``{"lm": {...}}``, ``{"lm_train": {...}}``, ``{"lm_mesh":
-{...}}`` and ``{"examples": {...}}`` line each, and
+{...}}``, ``{"examples": {...}}`` and ``{"analysis": {...}}`` line each, and
 last ``{"ok": true,
 "device": {...}}``; it exits non-zero, with no result line, when there is
 no CUDA device or no checkout around it.
@@ -304,6 +313,8 @@ MESH_DRYRUN = (("olmo-1b", "train_4k", False),
                ("qwen3-moe-235b-a22b", "decode_32k", False),
                ("recurrentgemma-2b", "decode_32k", False))
 MESH_DRYRUN_TIMEOUT = 600
+# phase 14: the static checks' time limit (the gate takes a few seconds)
+ANALYSIS_TIMEOUT = 300
 
 
 def fail(msg: str) -> int:
@@ -2839,6 +2850,68 @@ def check_examples(torch, on_path, smi: str):
     return out, err or path_err
 
 
+def check_analysis(on_path, smi: str):
+    """Phase 14.  Returns ``(report, error)``; ``error`` is '' when the
+    port's gate, ``python -m repro_torch.analysis`` with its default paths
+    run from the repository root, exits 0.  The report here holds, from
+    the gate's JSON report (written to a temporary directory), the files
+    scanned, the suppressed findings by rule, the gate's own seconds and
+    the subprocess's wall seconds, and the kernel / twin pairs that
+    ``KERNEL_REF_TWIN`` reads (``kernel_pairs`` over ``kernels/ops.py``
+    and ``kernels/ref.py``)."""
+    import tempfile
+    from repro_torch.analysis.project import Project
+    from repro_torch.analysis.rules.kernel_oracle import kernel_pairs
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out: dict = {"card": smi}
+
+    def run_gate():
+        with tempfile.TemporaryDirectory() as tmp:
+            return gate(Path(tmp) / "analysis.json")
+
+    def gate(path):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--json",
+             str(path)], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=ANALYSIS_TIMEOUT)
+        out["wall_s"] = time.perf_counter() - t0
+        out["exit_code"] = proc.returncode
+        print(proc.stdout, end="")
+        print(proc.stderr, end="", file=sys.stderr)
+        if proc.returncode != 0:
+            return f"python -m repro_torch.analysis exited {proc.returncode}"
+        doc = json.loads(path.read_text())
+        by_rule: dict = {}
+        for f in doc["suppressed"]:
+            by_rule[f["rule"]] = by_rule.get(f["rule"], 0) + 1
+        out.update(files=doc["files"], seconds=doc["seconds"],
+                   findings=len(doc["findings"]),
+                   suppressed=dict(sorted(by_rule.items())))
+        if doc["findings"] or not doc["suppressed"]:
+            return (f"the gate reports {len(doc['findings'])} findings and "
+                    f"{len(doc['suppressed'])} suppressed")
+        kernels = ROOT / "src" / "repro_torch" / "kernels"
+        proj = Project.load([kernels / "ops.py", kernels / "ref.py"])
+        out["kernel_twins"] = [
+            [k, t] for k, t, _line in kernel_pairs(
+                proj.modules["repro_torch.kernels.ops"],
+                proj.modules["repro_torch.kernels.ref"])]
+        if not out["kernel_twins"] or any(t is None
+                                          for _k, t in out["kernel_twins"]):
+            return f"kernel twins: {out['kernel_twins']}"
+        print(f"analysis: exit 0, {out['files']} files, suppressed "
+              f"{out['suppressed']}, {len(out['kernel_twins'])} kernel / "
+              f"twin pairs, gate {out['seconds']:.2f} s, wall "
+              f"{out['wall_s']:.2f} s [{smi}]")
+        return ""
+
+    err, path_err = on_path("analysis", run_gate, (), (
+        "integral_image", "fused_head", "haar_stage", "packed_window",
+        "window_variance"))
+    return out, err or path_err
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -3424,6 +3497,13 @@ def main() -> int:
     print(f"examples phase: {examples['seconds']:.1f} s")
     report["examples"] = examples
 
+    # ---------------------------------------------- 14. the static checks
+    analysis, err = check_analysis(on_path, smi)
+    if err:
+        return fail(f"static checks: {err}")
+    print(f"static checks phase: {analysis['wall_s']:.1f} s")
+    report["analysis"] = analysis
+
     # each kernel's launches are those of the first path that runs it: S, A
     # and C on the fused flush, B on the split flush, D on the kernel API
     launch_path = {split_b: "split", inv_d_k: "kernel_api"}
@@ -3445,6 +3525,7 @@ def main() -> int:
     print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"lm_mesh": lm_mesh}))
     print(json.dumps({"examples": examples}))
+    print(json.dumps({"analysis": analysis}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

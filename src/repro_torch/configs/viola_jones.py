@@ -1,17 +1,17 @@
 """The paper's own architecture: the 25-stage / 2913-weak-classifier Haar
 cascade (paper section 4).  ``paper_cascade()`` is the paper-shaped random
-cascade (performance runs); ``pretrained()`` reads the reference's
-AdaBoost-trained synthetic-face cascade from its npz file in the
-repository (a data file, not an import of the reference package)."""
+cascade (performance runs); ``pretrained()`` reads the AdaBoost-trained
+synthetic-face cascade from the port's own copy of the reference's npz
+file (``pretrained/synthetic_face_v2.npz``, the same bytes)."""
 
 from __future__ import annotations
 
-from pathlib import Path
+import os
 
 from repro_torch.core.cascade import load_cascade, paper_shaped_cascade
 
-DEFAULT_PRETRAINED = str(Path(__file__).resolve().parents[2] / "repro"
-                         / "configs" / "pretrained" / "synthetic_face_v2.npz")
+PRETRAINED_DIR = os.path.join(os.path.dirname(__file__), "pretrained")
+DEFAULT_PRETRAINED = os.path.join(PRETRAINED_DIR, "synthetic_face_v2.npz")
 
 # paper section 5/7 experiment constants
 STEP = 1

@@ -312,7 +312,7 @@ class StreamEngine:
         ref = np.zeros((splan.hp, splan.wp), np.float32)
         ref[:splan.h, :splan.w] = frame
         # repro: ignore[HOST_SYNC] keyframe upload: host bitmap seeds the device state
-        bm = np.asarray(bitmap, bool)
+        bm = np.asarray(bitmap, bool)  # repro_torch: ignore[HOST_SYNC] keyframe upload
         st = self.alloc_state(splan) if out is None else out
         st.ref.copy_(torch.from_numpy(ref))
         st.bitmap.copy_(torch.from_numpy(bm))
@@ -533,6 +533,7 @@ class StreamEngine:
             rung_plan)
         # host-path contract: the host-resident caches merge survivor
         # bitmaps here (the device-resident path avoids this sync)
+        # repro_torch: ignore[HOST_SYNC] host-path contract: survivor bitmaps
         sub_bitmaps = out.cpu().numpy()
         bitmaps = []
         for i in range(batch):  # scatter subset survivors into full layout
@@ -541,4 +542,5 @@ class StreamEngine:
             bitmaps.append(full)
         # host-path contract: recompute counts and the overflow flag gate
         # the caller's full-refresh fallback
+        # repro_torch: ignore[HOST_SYNC] host-path contract: counts and overflow flag
         return bitmaps, recomputed.cpu().numpy(), bool(overflow.cpu())

@@ -89,6 +89,7 @@ def level_windows_from_raw(levels, index: int | None = None
     pick = (lambda t: t) if index is None else (lambda t: t[index])
     # keyframe decode: the raw survivor arrays are this path's output (one
     # transfer for the overflow flags, one per level for the survivors)
+    # repro_torch: ignore[HOST_SYNC] keyframe decode: the overflow flags
     over = torch.stack([pick(res.overflow) for res, _s in levels]).cpu()
     if bool(over.any()):
         raise RuntimeError(
@@ -96,6 +97,7 @@ def level_windows_from_raw(levels, index: int | None = None
             "capacity_fracs (see Detector.calibrated)")
     wins = []
     for res, _scale in levels:
+        # repro_torch: ignore[HOST_SYNC] keyframe decode: the level's survivors
         ys, xs, val = torch.stack([pick(res.ys), pick(res.xs),
                                    pick(res.valid).long()]).cpu().numpy()
         val = val.astype(bool)
@@ -272,8 +274,8 @@ class VideoDetector:
         self._tile_grid = (ty, tx)
         self._tiles_total = ty * tx
         # repro: ignore[HOST_SYNC] host constant from plan metadata, no device round-trip
-        self._scales = np.asarray([lv.scale for lv in self._geo.plan]) \
-            if self._geo.plan else np.zeros(0)
+        self._scales = (np.asarray([lv.scale for lv in self._geo.plan])  # repro_torch: ignore[HOST_SYNC] plan metadata, no device round-trip
+                        if self._geo.plan else np.zeros(0))
         if self.config.device_state and self._geo.n_slots > 0:
             self._splan = self.engine.stream_plan(
                 hp, wp, h, w, self.config.tile, self.config.halo,
@@ -282,7 +284,7 @@ class VideoDetector:
 
     def _check_frame(self, frame) -> np.ndarray:
         # repro: ignore[HOST_SYNC] frame intake: callers hand in host pixels
-        frame = np.asarray(frame, np.float32)
+        frame = np.asarray(frame, np.float32)  # repro_torch: ignore[HOST_SYNC] frame intake
         if frame.ndim != 2:
             raise ValueError(f"expected grayscale (H, W) frame, got "
                              f"shape {frame.shape}")
@@ -521,8 +523,10 @@ class VideoDetector:
         i = self._pin_next
         self._pin_next ^= 1
         if self._pin_events[i] is not None:
+            # repro_torch: ignore[HOST_SYNC] frame intake: a wait the reference does not make (ROADMAP §3, P12)
             self._pin_events[i].synchronize()
         # the padding stays zero: a stream's frame shape is fixed
+        # repro_torch: ignore[HOST_SYNC] frame intake: a view of the pinned host buffer, no transfer
         self._pinned[i].numpy()[:splan.h, :splan.w] = frame
         dev_frame = torch.empty((splan.hp, splan.wp), dtype=torch.float32,
                                 device=dev)
@@ -563,6 +567,7 @@ class VideoDetector:
         # contract sync: the step's scalar verdict (mode, tiles_changed,
         # n_rec, levels_active, retry, n_surv) is what poll exists to
         # fetch, in one transfer
+        # repro_torch: ignore[HOST_SYNC] contract sync: the step's scalar verdict
         tok.flags = tuple(tok.out.flags.tolist())
         self.xfer_bytes += 6 * 4
         return tok.flags
@@ -636,6 +641,7 @@ class VideoDetector:
             self.engine.sat_level_total += len(self._geo.plan)
             # contract sync: the decoded survivor slots are the frame's
             # output; only the n_surv live ones cross the bus
+            # repro_torch: ignore[HOST_SYNC] slot decode: the frame's survivor slots
             slots = tok.out.slots[:n_surv].cpu().numpy()
             self.xfer_bytes += n_surv * 4
             self._rects = self._decode_slots(slots)

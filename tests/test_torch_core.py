@@ -72,6 +72,18 @@ def test_from_numpy_and_pretrained_equal_reference():
     assert got.bounds == tuple(int(v) for v in np.asarray(ref.stage_offsets))
 
 
+def test_pretrained_copy_is_the_reference_file():
+    # the port reads its own copy of the trained cascade, byte for byte the
+    # reference's, from inside its own package
+    import hashlib
+    port = Path(tvj.DEFAULT_PRETRAINED).resolve()
+    assert port.parent == Path(tvj.PRETRAINED_DIR).resolve()
+    assert port.is_relative_to(REPO / "src" / "repro_torch")
+    digests = {hashlib.sha256(Path(f).read_bytes()).hexdigest()
+               for f in (port, DEFAULT_PRETRAINED)}
+    assert len(digests) == 1
+
+
 def test_cascade_to_keeps_bounds_and_validates():
     c = tcascade.paper_shaped_cascade(1, stage_sizes=SMALL)
     assert c.to("cpu").bounds == c.bounds

@@ -211,7 +211,7 @@ def test_sub_window_images_yield_empty():
 def test_config_errors_match_reference():
     with pytest.raises(ValueError, match="tail_backend"):
         # repro: ignore[TAIL_BACKEND] deliberately invalid backend: this test pins the validation error
-        Detector(TCASC, EngineConfig(tail_backend="simd"), device="cpu")
+        Detector(TCASC, EngineConfig(tail_backend="simd"), device="cpu")  # repro_torch: ignore[TAIL_BACKEND] pins the validation error
     with pytest.raises(ValueError, match="strategy"):
         _port().detect_batch([np.zeros((30, 30), np.float32)],
                              strategy="scan")

@@ -341,7 +341,7 @@ def test_unknown_backend_raises():
     lanes = [torch.zeros(1, dtype=torch.long)] * 5
     with pytest.raises(ValueError, match="backend"):
         # repro: ignore[TAIL_BACKEND] deliberately invalid backend: this test pins the rejection
-        packed_tail.stage_sums(TCASC, 0, 1, torch.zeros(1, 4), *lanes, torch.zeros(1), backend="simd")
+        packed_tail.stage_sums(TCASC, 0, 1, torch.zeros(1, 4), *lanes, torch.zeros(1), backend="simd")  # repro_torch: ignore[TAIL_BACKEND] pins the rejection
 
 
 # -------------------------------------------------------- wrapper rules
