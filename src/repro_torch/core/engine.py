@@ -29,6 +29,12 @@ backend gives the oracle's bits.
 
 Executors are built once per ``plan.key`` (``program_builds`` counts the
 builds); their index tables go to the device once, at build time.
+``h2d_bytes`` and ``d2h_bytes`` count the bytes of every copy the detector
+makes between host and device, at the copy, whatever the device (so a CPU
+detector counts what a card's would).  ``detect_batch``'s work runs inside
+profiler spans (:func:`repro_torch.spans.span`: ``detect_batch`` around
+``pack``, ``upload``, ``head``, ``tail``, ``sync``, ``copy_back`` and
+``decode``), which cost a check each when no profiler records.
 
 ``Detector.calibrated`` profiles one image and returns a detector whose
 capacities (and, on request, tail and head ladders) are measured on this
@@ -50,6 +56,7 @@ from .integral import window_inv_sigma
 from .pyramid import downscale_indices, downscale_nearest
 from . import nms
 from repro_torch.device import resolve_device
+from repro_torch.spans import span
 from repro_torch.kernels import autotune as kautotune
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import packed_tail
@@ -150,6 +157,8 @@ class Detector:
         planlib.validate_config(self.n_stages, config)
         self.cal_profile: dict = {}      # set by calibrated() on its result
         self.program_builds = 0          # executor builds (plan-cache probe)
+        self.h2d_bytes = 0               # host -> device copies, bytes
+        self.d2h_bytes = 0               # device -> host copies, bytes
         self._level_fns: dict = {}       # level-plan key -> level fn
         self._batch_fns: dict = {}       # batch-plan key -> (head, tail)
 
@@ -294,9 +303,22 @@ class Detector:
         return np.stack([np.rint(xs * scales), np.rint(ys * scales), w, w],
                         axis=1).astype(np.int32).reshape(-1, 4)
 
+    def _to_device(self, a) -> torch.Tensor:
+        """``a`` copied to the device; counts its bytes."""
+        a = np.asarray(a)
+        self.h2d_bytes += a.nbytes
+        return torch.as_tensor(a, device=self.device)
+
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` copied to the host as numpy; counts its bytes."""
+        a = t.cpu().numpy()
+        self.d2h_bytes += a.nbytes
+        return a
+
     def _stack_to_device(self, stack: np.ndarray, valid_hw: np.ndarray):
-        return (torch.from_numpy(stack).to(self.device),
-                torch.from_numpy(valid_hw.astype(np.int64)).to(self.device))
+        with span("upload"):
+            return (self._to_device(stack),
+                    self._to_device(valid_hw.astype(np.int64)))
 
     def _levels_raw(self, stack: np.ndarray, valid_hw: np.ndarray, hp: int,
                     wp: int):
@@ -311,10 +333,8 @@ class Detector:
         stack_t, lims_t = self._stack_to_device(stack, lims)
         out = []
         for li, lp in enumerate(levels):
-            ys_idx = torch.as_tensor(downscale_indices(hp, lp.height),
-                                     device=self.device)
-            xs_idx = torch.as_tensor(downscale_indices(wp, lp.width),
-                                     device=self.device)
+            ys_idx = self._to_device(downscale_indices(hp, lp.height))
+            xs_idx = self._to_device(downscale_indices(wp, lp.width))
             img_l = stack_t[:, ys_idx[:, None], xs_idx[None, :]]
             res = self._level_fn(lp.height, lp.width)(img_l, lims_t[li])
             out.append((res, lp.scale))
@@ -333,15 +353,16 @@ class Detector:
     def detect(self, image, group: bool = True) -> np.ndarray:
         """Detect faces; returns (M, 4) int32 [x, y, w, h] in image coords."""
         levels = self.detect_raw(image)
-        if levels and bool(torch.stack([r.overflow for r, _ in levels]).any()):
+        if levels and self._to_host(
+                torch.stack([r.overflow for r, _ in levels]).any()):
             raise RuntimeError(
                 "wave-engine capacity overflow; raise capacity_fracs "
                 "(see calibrate_capacities)")
         rects = []
         for res, scale in levels:
-            val = res.valid.cpu().numpy()
-            rects.append(self._decode_rects(res.ys.cpu().numpy()[val],
-                                            res.xs.cpu().numpy()[val], scale))
+            val = self._to_host(res.valid)
+            rects.append(self._decode_rects(self._to_host(res.ys)[val],
+                                            self._to_host(res.xs)[val], scale))
         rects = (np.concatenate(rects, axis=0) if rects
                  else np.zeros((0, 4), np.int32))
         if not group:
@@ -366,9 +387,7 @@ class Detector:
         use_kernel = planlib.dense_on_kernels(cfg, step)
         self.program_builds += 1
 
-        def on_dev(a):
-            return torch.as_tensor(np.asarray(a), device=dev)
-
+        on_dev = self._to_device
         layout = plan.layout
         lvl_of_slot = on_dev(layout.lvl_of_slot).long()
         y_of_slot = on_dev(layout.y_of_slot).long()
@@ -480,13 +499,14 @@ class Detector:
     @staticmethod
     def _pack_stack(imgs: list, hp: int, wp: int):
         """Zero-pad images into one (B, hp, wp) stack + their true shapes."""
-        stack = np.zeros((len(imgs), hp, wp), np.float32)
-        valid_hw = np.zeros((len(imgs), 2), np.int32)
-        for i, im in enumerate(imgs):
-            h, w = im.shape
-            stack[i, :h, :w] = im
-            valid_hw[i] = (h, w)
-        return stack, valid_hw
+        with span("pack"):
+            stack = np.zeros((len(imgs), hp, wp), np.float32)
+            valid_hw = np.zeros((len(imgs), 2), np.int32)
+            for i, im in enumerate(imgs):
+                h, w = im.shape
+                stack[i, :h, :w] = im
+                valid_hw[i] = (h, w)
+            return stack, valid_hw
 
     def detect_batch_raw(self, images) -> list[tuple[LevelResult, float]]:
         """vmap strategy: per-level ``LevelResult``s with a leading batch
@@ -504,25 +524,26 @@ class Detector:
                      strategy: str = "packed") -> list[np.ndarray]:
         """Detect faces in many images; one (M, 4) rect array per image,
         equal per image to sequential :meth:`detect`."""
-        imgs = [np.asarray(im, np.float32) for im in images]
-        out: list = [None] * len(imgs)
-        buckets: dict[tuple[int, int], list[int]] = {}
-        for i, im in enumerate(imgs):
-            buckets.setdefault(self._bucket_hw(*im.shape), []).append(i)
-        for (hp, wp), idxs in buckets.items():
-            if strategy == "packed":
-                per_img_rects = self._detect_bucket_packed(
-                    [imgs[i] for i in idxs], hp, wp)
-            elif strategy == "vmap":
-                per_img_rects = self._detect_bucket_vmap(
-                    [imgs[i] for i in idxs], idxs)
-            else:
-                raise ValueError(f"unknown batch strategy: {strategy!r}")
-            for i, rects in zip(idxs, per_img_rects):
-                out[i] = (nms.group_rectangles(rects,
-                                               self.config.min_neighbors)
-                          if group else rects)
-        return out
+        with span("detect_batch"):
+            imgs = [np.asarray(im, np.float32) for im in images]
+            out: list = [None] * len(imgs)
+            buckets: dict[tuple[int, int], list[int]] = {}
+            for i, im in enumerate(imgs):
+                buckets.setdefault(self._bucket_hw(*im.shape), []).append(i)
+            for (hp, wp), idxs in buckets.items():
+                if strategy == "packed":
+                    per_img_rects = self._detect_bucket_packed(
+                        [imgs[i] for i in idxs], hp, wp)
+                elif strategy == "vmap":
+                    per_img_rects = self._detect_bucket_vmap(
+                        [imgs[i] for i in idxs], idxs)
+                else:
+                    raise ValueError(f"unknown batch strategy: {strategy!r}")
+                for i, rects in zip(idxs, per_img_rects):
+                    out[i] = (nms.group_rectangles(rects,
+                                                   self.config.min_neighbors)
+                              if group else rects)
+            return out
 
     def _detect_bucket_packed(self, imgs: list, hp: int, wp: int) -> list:
         n = len(imgs)
@@ -531,37 +552,47 @@ class Detector:
             return [np.zeros((0, 4), np.int32) for _ in range(n)]
         stack, valid_hw = self._pack_stack(imgs, hp, wp)
         head_fn, tail_fn = self.batch_parts(hp, wp, n)
-        res = tail_fn(*head_fn(*self._stack_to_device(stack, valid_hw)))
-        if bool(res.overflow):          # the flush's one read of the device
+        flush_in = self._stack_to_device(stack, valid_hw)
+        with span("head"):
+            parts = head_fn(*flush_in)
+        del flush_in        # each half's inputs go once it has run: the
+        with span("tail"):  # device's peak holds one stack at a time
+            res = tail_fn(*parts)
+        del parts
+        with span("sync"):              # the flush's one wait for the device
+            overflow = self._to_host(res.overflow)
+        if overflow:
             raise RuntimeError(
                 "batched-engine shared capacity overflow; raise "
                 "batch_capacity_fracs / capacity_fracs (see "
                 "Detector.calibrated)")
-        scales = np.asarray([lp.scale for lp in plan.levels])
-        val = res.valid.cpu().numpy()
-        b = res.img.cpu().numpy()[val]
-        lvl = res.lvl.cpu().numpy()[val]
-        ys = res.ys.cpu().numpy()[val]
-        xs = res.xs.cpu().numpy()[val]
-        out = []
-        for i in range(n):
-            m = b == i
-            out.append(self._decode_rects(ys[m], xs[m], scales[lvl[m]]))
+        with span("copy_back"):
+            # one whole list on the host at a time: its copy is masked to
+            # the live lanes before the next one comes back
+            val = self._to_host(res.valid)
+            b, lvl, ys, xs = (self._to_host(t)[val] for t in (
+                res.img, res.lvl, res.ys, res.xs))
+        with span("decode"):
+            scales = np.asarray([lp.scale for lp in plan.levels])
+            out = []
+            for i in range(n):
+                m = b == i
+                out.append(self._decode_rects(ys[m], xs[m], scales[lvl[m]]))
         return out
 
     def _detect_bucket_vmap(self, imgs: list, idxs: list) -> list:
         levels = self.detect_batch_raw(imgs)
         over = np.zeros(len(imgs), bool)
         if levels:
-            over = torch.stack([res.overflow for res, _ in levels]
-                               ).any(0).cpu().numpy()
+            over = self._to_host(torch.stack([res.overflow
+                                              for res, _ in levels]).any(0))
         if over.any():
             bad = [idxs[i] for i in np.nonzero(over)[0]]
             raise RuntimeError(
                 f"wave-engine capacity overflow on image(s) {bad}; raise "
                 "capacity_fracs (see Detector.calibrated)")
-        host = [(res.valid.cpu().numpy(), res.ys.cpu().numpy(),
-                 res.xs.cpu().numpy(), scale) for res, scale in levels]
+        host = [(self._to_host(res.valid), self._to_host(res.ys),
+                 self._to_host(res.xs), scale) for res, scale in levels]
         out = []
         for i in range(len(imgs)):
             rects = [self._decode_rects(ys[i][val[i]], xs[i][val[i]], scale)
@@ -613,7 +644,7 @@ class Detector:
         for lp, (res, _scale) in zip(bplan.levels, levels):
             nwin = max(lp.n_windows, 1)
             win_tot += nwin
-            cnt = res.alive_counts.cpu().numpy().astype(np.float64)
+            cnt = self._to_host(res.alive_counts).astype(np.float64)
             for k, s0 in enumerate(comp_stages):
                 survivors = cnt[s0 - 1] if s0 > 0 else float(nwin)
                 fracs[k] = max(fracs[k], survivors / nwin)
@@ -636,7 +667,7 @@ class Detector:
             # weighted by its expected packed-window share
             padded = torch.zeros((hp, wp), dtype=torch.float32,
                                  device=self.device)
-            padded[:h, :w] = torch.from_numpy(image)
+            padded[:h, :w] = self._to_device(image)
             workload = [(downscale_nearest(padded, lp.height, lp.width),
                          d * lp.n_windows)
                         for lp, d in zip(bplan.levels, level_density)]
@@ -683,7 +714,7 @@ class Detector:
         per_level = []
         for lp, (res, scale) in zip(bplan.levels, levels):
             nwin = lp.n_windows
-            counts = res.alive_counts.cpu().numpy().astype(np.int64)
+            counts = self._to_host(res.alive_counts).astype(np.int64)
             alive_before = np.concatenate([[nwin], counts[:-1]])
             we = int((alive_before * sizes).sum())
             wd = int(nwin * sizes.sum())

@@ -8,7 +8,7 @@ from .compiler import (CAP_FLOOR, BATCH_CAP_FLOOR,  # noqa: F401
                        STREAM_CAP_BASE, STREAM_DECODE_CAP,
                        compile_level_plan, compile_plan,
                        compile_stream_plan, dense_on_kernels,
-                       level_capacities, n_compactions, plan_cache_info,
+                       level_capacities, n_compactions,
                        segment_spans, segment_work_units, select_backend,
                        select_head_mode,
                        shared_capacities, stream_budget, stream_capacity_rung,

@@ -56,8 +56,7 @@ __all__ = ["CAP_FLOOR", "BATCH_CAP_FLOOR", "STREAM_CAP_BASE",
            "dense_on_kernels", "validate_config",
            "window_limits", "compile_level_plan", "compile_plan",
            "compile_stream_plan",
-           "stream_capacity_rung", "stream_budget", "segment_work_units",
-           "plan_cache_info"]
+           "stream_capacity_rung", "stream_budget", "segment_work_units"]
 
 # static-shape floor of every compaction capacity: keeps `nonzero(size=...)`
 # shapes sane for tiny levels, and is exactly the per-(image, level) lane
@@ -454,11 +453,3 @@ def compile_stream_plan(config, n_stages: int, hp: int, wp: int, h: int,
     # repro: ignore[PLAN_GEOMETRY] the port's one IR producer
     return StreamStatePlan(key, hp, wp, h, w, tile, halo, ty, tx,
                            tuple(ranges), limit_mask, n_live, n_slots, cap)
-
-
-def plan_cache_info() -> dict:
-    """Hit/miss counters of the plan caches (observability for the
-    plan-cache tests and benchmark artifacts)."""
-    return {"cascade": compile_plan.cache_info()._asdict(),
-            "level": compile_level_plan.cache_info()._asdict(),
-            "layout": _slot_layout.cache_info()._asdict()}
