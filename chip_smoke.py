@@ -228,6 +228,9 @@ FP32_OPS = 67e12
 SEED = 0
 BATCH = 8
 H, W = 480, 640
+# phase 2's kernel E row: the benchmark cell's flush of 16 scenes, whose
+# first tail segment holds 13,802,064 lanes at 480x640
+E_BATCH = 16
 DEVICE = "cuda"
 # packed-list sizes of phase 5's backend race: each size costs ~31 calls of
 # the one-classifier-at-a-time gather backend (~1 s each at 2913
@@ -409,7 +412,8 @@ def cuda_ms(torch, fn, reps: int) -> float:
 # the module whose wrapper counts its launches
 KERNEL_ENTRIES = {"sat_chained": "integral_image", "fused_tiles": "fused_head",
                   "stage_sums": "haar_stage", "packed_sums": "packed_window",
-                  "inv_sigma": "window_variance"}
+                  "inv_sigma": "window_variance",
+                  "gate_counts": "tail_gates"}
 
 
 def profiled_ms(torch, fn, reps: int, kernel: str = "") -> float:
@@ -1026,9 +1030,9 @@ def check_service(torch, on_path, det, scene, flush_ms: float, smi: str):
     from repro_torch.serve import DetectorService, PodSpec, ServiceConfig
     from repro_torch.stream import StreamConfig, VideoDetector
     t_phase = time.perf_counter()
-    head_s, head_a, split_b, tail_c, inv_d = (
+    head_s, head_a, split_b, tail_c, inv_d, tail_e = (
         "integral_image", "fused_head", "haar_stage", "packed_window",
-        "window_variance")
+        "window_variance", "tail_gates")
     pods = tuple(PodSpec(*p) for p in SERVICE_PODS)
     scfg = StreamConfig(**STREAM_CONFIG)
     dev_cfg = scfg._replace(device_state=True)
@@ -1066,8 +1070,13 @@ def check_service(torch, on_path, det, scene, flush_ms: float, smi: str):
     # ---- one-shot flush: sixteen requests, rects equal detect's
     svc = service()
     reqs = [svc.submit(im) for im in twice]
-    _n, err = on_path("service", svc.flush, (head_s, head_a, tail_c),
+    _n, err = on_path("service", svc.flush, (head_s, head_a, tail_c, tail_e),
                       (split_b, inv_d))
+    # one-shot flushes only: E gates each packed tail segment that C sums
+    n = ops.launches()
+    if not err and n[tail_e] != n[tail_c]:
+        err = (f"service flush launched E {n[tail_e]} times and C "
+               f"{n[tail_c]}, not once each per tail segment")
     bad = request_errors(reqs, wants + wants, "service")
     if err or bad:
         return out, err or "; ".join(bad)
@@ -1140,8 +1149,8 @@ def check_service(torch, on_path, det, scene, flush_ms: float, smi: str):
         for k, sess in enumerate(sessions):
             frame_reqs[k].append(sess.submit_frame(f))
     ones = [svc.submit(im) for im in imgs[:4]]
-    _n, err = on_path("service_stream", svc.flush, (head_s, head_a, tail_c),
-                      (split_b, inv_d))
+    _n, err = on_path("service_stream", svc.flush,
+                      (head_s, head_a, tail_c, tail_e), (split_b, inv_d))
     bad = request_errors(ones, wants, "service_stream one-shot")
     for k, reqs in enumerate(frame_reqs):
         bad += request_errors(reqs, lone[configs[k]], f"session {k}")
@@ -1189,7 +1198,8 @@ def check_service(torch, on_path, det, scene, flush_ms: float, smi: str):
         return ones, frames
 
     (ones, frames), err = on_path("service_background", background,
-                                  (head_s, head_a, tail_c), (split_b, inv_d))
+                                  (head_s, head_a, tail_c, tail_e),
+                                  (split_b, inv_d))
     bad = (request_errors(ones, wants, "background one-shot")
            + request_errors(frames, lone[dev_cfg], "background frame"))
     if err or bad:
@@ -1353,8 +1363,10 @@ def check_fleet(torch, on_path, det, flush_ms: float, smi: str):
             after = ops.launches()
             per_flush.append({k: after[k] - before[k] for k in after})
 
+    # the fleet's flushes carry stream frames only: keyframes take the
+    # level program, increments the stream step, neither kernel E
     _n, err = on_path("fleet", frames, (head_s, head_a, tail_c),
-                      (split_b, inv_d))
+                      (split_b, inv_d, "tail_gates"))
     svc.flush = real_flush
     bad = []
     for fs, _kind in sessions:
@@ -3147,20 +3159,29 @@ def main() -> int:
           f"{sum(s_levels):.4f} ms per flush")
     report["sat_per_level_ms"] = s_levels
     seg = plan.tail_segments[0]
-    idx, cnt = nonzero_static(alive_flat, seg.capacity)
-    sel = idx.clamp(min=0)
-    lay = plan.layout
-    slot = (sel % plan.n_slots).cpu().numpy()
-    lvl = lay.lvl_of_slot[slot]
 
     def lane(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
 
-    lanes = (lane((sel // plan.n_slots).cpu().numpy()),
-             lane(lay.sat_base_of_lvl[lvl]), lane(lay.sat_stride_of_lvl[lvl]),
-             lane(lay.y_of_slot[slot]), lane(lay.x_of_slot[slot]))
-    inv_c = inv_flat[sel].contiguous()
-    n_live = cnt.clamp(max=seg.capacity)      # as the engine's tail passes it
+    def packed_list(plan, alive_flat, inv_flat):
+        """The first tail segment's compaction, as the engine's tail makes
+        it: the compacted index, the live count, and kernel C's five lane
+        arrays and 1/sigma."""
+        seg = plan.tail_segments[0]
+        idx, cnt = nonzero_static(alive_flat, seg.capacity)
+        sel = idx.clamp(min=0)
+        lay = plan.layout
+        slot = (sel % plan.n_slots).cpu().numpy()
+        lvl = lay.lvl_of_slot[slot]
+        lanes = (lane((sel // plan.n_slots).cpu().numpy()),
+                 lane(lay.sat_base_of_lvl[lvl]),
+                 lane(lay.sat_stride_of_lvl[lvl]),
+                 lane(lay.y_of_slot[slot]), lane(lay.x_of_slot[slot]))
+        # the live count as the engine's tail passes it
+        return (idx, cnt.clamp(max=seg.capacity), lanes,
+                inv_flat[sel].contiguous())
+
+    idx, n_live, lanes, inv_c = packed_list(plan, alive_flat, inv_flat)
     c_args = (cascade, seg.s0, seg.s1, ii_flat, *lanes, inv_c)
     want = packed_window.stage_sums_plain(*c_args)
     want_live = packed_window.stage_sums_plain(*c_args, n_live)
@@ -3210,6 +3231,59 @@ def main() -> int:
     report["packed_list"] = {"lanes": cap, "valid": n_valid, "live": live,
                              "stages": [seg.s0, seg.s1], "weak": k_c}
 
+    # E: the gates and per-image counts of the first tail segment of a
+    # flush of E_BATCH scenes, on kernel C's sums of that flush's packed
+    # list; integer counts and a bool mask, so exactly its twin's
+    e_imgs = imgs + scenes(render_scene, E_BATCH - BATCH, H, W, SEED + 2,
+                           n_faces=3)
+    plan_e = det.batch_plan(hp, wp, E_BATCH)
+    head_e, _tail_e = det.batch_parts(hp, wp, E_BATCH)
+    alive_e, inv_e, ii_e, _counts = head_e(*det._stack_to_device(
+        *det._pack_stack(e_imgs, hp, wp)))
+    seg_e = plan_e.tail_segments[0]
+    idx_e, n_live_e, lanes_e, inv_ce = packed_list(plan_e, alive_e, inv_e)
+    del alive_e, inv_e
+    ss_e = packed_window.stage_sums(cascade, seg_e.s0, seg_e.s1, ii_e,
+                                    *lanes_e, inv_ce, n_live=n_live_e)
+    del ii_e, lanes_e, inv_ce
+    thr_e = cascade.stage_threshold[seg_e.s0:seg_e.s1]
+    b_e = idx_e.clamp(min=0) // plan_e.n_slots
+    valid_e = idx_e >= 0
+    k_e = seg_e.s1 - seg_e.s0
+
+    def gates(fn):
+        v = valid_e.clone()
+        c = torch.zeros((k_e, E_BATCH), dtype=torch.int32, device=dev)
+        fn(ss_e, thr_e, v, b_e, n_live_e, c)
+        return v, c
+
+    got_v, got_c = gates(ops.tail_gate_counts)
+    want_v, want_c = gates(ops.tail_gate_counts_ref)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_v, want_v) and torch.equal(got_c, want_c)):
+        return fail(f"kernel E differs from its twin at the first segment "
+                    f"of {E_BATCH} scenes: {int((got_v != want_v).sum())} "
+                    f"lanes of the mask, counts {diff(got_c, want_c)}")
+    cap_e = valid_e.numel()
+    live_e = int(n_live_e)
+    valid_in = int(valid_e.sum())
+    # lanes each stage compares: those still valid when it begins
+    entering = [valid_in] + [int(n) for n in want_c.sum(1)[:-1]]
+    e_work = (9 * live_e + 4 * sum(entering)
+              + (valid_in - int(want_c[-1].sum())) + 4 * k_e * E_BATCH,
+              sum(entering))
+    e_ms = profiled_ms(torch, lambda: gates(ops.tail_gate_counts), 10,
+                       "gate_counts")
+    e_plain = cuda_ms(torch, lambda: gates(ops.tail_gate_counts_ref), 3)
+    print(f"kernel E at the first segment of {E_BATCH} scenes: {cap_e} "
+          f"lanes, {live_e} live, stages [{seg_e.s0}, {seg_e.s1}), "
+          f"survivors {[int(n) for n in want_c.sum(1)]}; == twin [{smi}]")
+    row("tail_gates (E)", "tail_gates", "tail_gates.cu",
+        "src/repro/core/engine.py:550", 0.0, e_ms, e_plain, e_work)
+    rows[-1].update(lanes=cap_e, live_lanes=live_e, images=E_BATCH,
+                    stages=[seg_e.s0, seg_e.s1])
+    del ss_e, b_e, valid_e, got_v, want_v
+
     # -------------------------------------------------------- 3. main path
     by_path: dict = {}
 
@@ -3232,17 +3306,24 @@ def main() -> int:
                          device=DEVICE)
     head_s, head_a = "integral_image", "fused_head"
     split_b, tail_c = "haar_stage", "packed_window"
-    inv_d_k = "window_variance"
+    inv_d_k, tail_e = "window_variance", "tail_gates"
     fused_rects, err = on_path(
         "fused", lambda: det.detect_batch(imgs, group=False),
-        (head_s, head_a, tail_c), (split_b, inv_d_k))
+        (head_s, head_a, tail_c, tail_e), (split_b, inv_d_k))
     if err:
         return fail(err)
     split_rects, err = on_path(
         "split", lambda: det_split.detect_batch(imgs, group=False),
-        (head_s, split_b, tail_c), (head_a, inv_d_k))
+        (head_s, split_b, tail_c, tail_e), (head_a, inv_d_k))
     if err:
         return fail(err)
+    # a packed flush gates and counts each tail segment once, after C
+    n_seg = len(plan.tail_segments)
+    for label in ("fused", "split"):
+        got = (by_path[label][tail_c], by_path[label][tail_e])
+        if got != (n_seg, n_seg):
+            return fail(f"{label} flush launched C and E {got} times, not "
+                        f"once per tail segment ({n_seg})")
     for i, (a, b) in enumerate(zip(fused_rects, split_rects)):
         if not np.array_equal(a, b):
             return fail(f"fused and split heads differ on image {i}")
@@ -3253,7 +3334,7 @@ def main() -> int:
     one_rects, err = on_path(
         "detect", lambda: [det_one.detect(imgs[i], group=False)
                            for i in range(2)],
-        (head_s, head_a, tail_c), (split_b, inv_d_k))
+        (head_s, head_a, tail_c), (split_b, inv_d_k, tail_e))
     if err:
         return fail(err)
     for i, rects in enumerate(one_rects):
@@ -3308,7 +3389,7 @@ def main() -> int:
 
     bad, err = on_path("kernel_api", lambda: check_kernel_api(torch, stack),
                        (head_s, inv_d_k),
-                       (head_a, split_b, tail_c))
+                       (head_a, split_b, tail_c, tail_e))
     torch.cuda.synchronize()
     if err or bad:
         return fail(err or "; ".join(bad))
@@ -3320,7 +3401,7 @@ def main() -> int:
     # the 3-stage cascade is all dense prefix: no tail, no kernel C
     on_card, err = on_path(
         "card_vs_cpu", lambda: Detector(pre, cfg, device=DEVICE).detect_batch(
-            faces), (head_s, head_a), (split_b, inv_d_k))
+            faces), (head_s, head_a), (split_b, inv_d_k, tail_e))
     if err:
         return fail(err)
     on_cpu = Detector(pre, cfg, device="cpu").detect_batch(faces)
@@ -3504,9 +3585,9 @@ def main() -> int:
     print(f"static checks phase: {analysis['wall_s']:.1f} s")
     report["analysis"] = analysis
 
-    # each kernel's launches are those of the first path that runs it: S, A
-    # and C on the fused flush, B on the split flush, D on the kernel API
-    launch_path = {split_b: "split", inv_d_k: "kernel_api"}
+    # each kernel's launches are those of the first path that runs it: S, A,
+    # C and E on the fused flush, B on the split flush, D on the kernel API
+    launch_path = {split_b: "split", inv_d_k: "kernel_api", tail_e: "fused"}
     for r in rows:
         k = r.pop("_kernel")
         r["launches"] = by_path[launch_path.get(k, "fused")][k]

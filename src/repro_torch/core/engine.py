@@ -16,7 +16,10 @@ heads and the packed tail on the port's CUDA kernels:
 - each compacted tail segment runs through
   :func:`repro_torch.kernels.packed_tail.stage_sums` with the plan's
   backend (``"pallas"`` = kernel C, launched in the plan's ``lane_block``)
-  and the compaction's live count, so kernel C skips the ``-1`` fill.
+  and the compaction's live count, so kernel C skips the ``-1`` fill;
+  in ``detect_batch`` kernel E (:func:`repro_torch.kernels.ops
+  .tail_gate_counts`) then gates the segment's lanes by its stages and
+  counts each image's survivors, over the live prefix only.
 
 ``detect_batch`` (packed strategy) shares one compaction across every
 image and pyramid level of a flush and reads the device once, for the
@@ -462,18 +465,16 @@ class Detector:
                         t[sel] for t in (b_sel, lvl_sel, y_sel, x_sel,
                                          inv_sel))
                     valid = idx >= 0
+                n_live = cnt.clamp(max=seg.capacity)
                 ss_run = packed_tail.stage_sums(
                     cascade, seg.s0, seg.s1, ii_flat, b_sel,
                     sat_base_of_lvl[lvl_sel], sat_stride_of_lvl[lvl_sel],
                     y_sel, x_sel, inv_sel, backend=seg.backend,
-                    n_live=cnt.clamp(max=seg.capacity),
-                    lane_block=plan.lane_block)
-                for j, s in enumerate(range(seg.s0, seg.s1)):
-                    valid = valid & (ss_run[j] >= thr[s])
-                    per_img = torch.zeros(batch, dtype=torch.int32,
-                                          device=dev)
-                    per_img.index_add_(0, b_sel, valid.to(torch.int32))
-                    counts[s] += per_img
+                    n_live=n_live, lane_block=plan.lane_block)
+                # kernel E: the segment's gates and per-image counts
+                valid = kops.tail_gate_counts(
+                    ss_run, thr[seg.s0:seg.s1], valid, b_sel, n_live,
+                    counts[seg.s0:seg.s1])
             return BatchResult(
                 img=torch.where(valid, b_sel, -1),
                 lvl=torch.where(valid, lvl_sel, -1),

@@ -48,7 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 SOURCES = ("integral_image.cu", "fused_head.cu", "haar_stage.cu",
-           "packed_window.cu", "window_variance.cu")
+           "packed_window.cu", "window_variance.cu", "tail_gates.cu")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _build_lock = threading.RLock()     # builds and loads, process-wide

@@ -16,6 +16,9 @@ Kernels and what they port:
 - B  ``dense_stage_sums(_batch)``    <- ``haar_stage_sums_kernel``
 - C  ``packed_stage_sums``           <- ``packed_stage_sums_kernel``
 - D  ``window_inv_sigma_grid(_batch)`` <- ``window_inv_sigma_kernel``
+- E  ``tail_gate_counts``           <- no TPU kernel: the batch program's
+                                        per-stage gate and per-image
+                                        scatter-add of the packed tail
 
 and the stream's two tile-planning functions, which are jnp in the
 reference (``repro.kernels.tile_change``) and plain PyTorch here, on the
@@ -41,6 +44,7 @@ from . import fused_head as _fused
 from . import haar_stage as _haar
 from . import packed_window as _packed
 from . import ref
+from . import tail_gates as _gates
 from . import tile_change as _tc
 from . import window_variance as _wv
 from .autotune import DEFAULT_TILE
@@ -57,6 +61,7 @@ __all__ = ["sat_tables", "sat_tables_ref",
            "dense_stage_sums", "dense_stage_sums_ref",
            "dense_stage_sums_batch", "dense_stage_sums_batch_ref",
            "packed_stage_sums", "packed_stage_sums_ref",
+           "tail_gate_counts", "tail_gate_counts_ref",
            "tile_change_mask", "tile_change_mask_ref",
            "changed_window_map", "changed_window_map_ref",
            "launches", "reset_launches"]
@@ -209,6 +214,28 @@ def packed_stage_sums_ref(cascade: Cascade, s0: int, s1: int,
         cascade.rect_xywh, cascade.rect_w, cascade.wc_threshold,
         cascade.left_val, cascade.right_val, b[s0], rel, ii_flat, img, base,
         stride, ys, xs, inv_sigma)
+
+
+# ------------------------------------------------------ tail gates (E)
+def tail_gate_counts(ss_run: torch.Tensor, thr: torch.Tensor,
+                     valid: torch.Tensor, b_sel: torch.Tensor,
+                     n_live: torch.Tensor,
+                     counts: torch.Tensor) -> torch.Tensor:
+    """Gate the (cap,) ``valid`` mask by a segment's (k, cap) stage sums
+    and (k,) thresholds, and add each image's survivors after each stage
+    to the int32 (k, B) ``counts`` (both in place; returns ``valid``).
+    ``n_live`` is the compaction's live count, a 0-dim int64 tensor on the
+    lanes' device; lanes at or past it must be invalid on entry."""
+    return _gates.gate_counts(ss_run, thr, valid, b_sel, n_live, counts)
+
+
+def tail_gate_counts_ref(ss_run: torch.Tensor, thr: torch.Tensor,
+                         valid: torch.Tensor, b_sel: torch.Tensor,
+                         n_live: torch.Tensor,
+                         counts: torch.Tensor) -> torch.Tensor:
+    """Oracle twin of :func:`tail_gate_counts`."""
+    return ref.tail_gate_counts_ref(ss_run, thr, valid, b_sel, n_live,
+                                    counts)
 
 
 # ------------------------------------------------------- stream tile planning

@@ -8,7 +8,10 @@ weak-classifier parameters read as tensors.  Given the same SAT and
 to the reference's tolerances.  The tile-change oracles are independent
 algorithms, as the reference's: direct per-tile reshape sums instead of
 SAT corner lookups, and a range-indicator integer matmul instead of the
-integer SAT, so a SAT indexing bug cannot hide in its own oracle.
+integer SAT, so a SAT indexing bug cannot hide in its own oracle.  The
+tail's gates and counts have no reference oracle; their twin is the
+reference batch program's own formula (``repro.core.engine``: a gate per
+stage, then a scatter-add of each lane's mask into its image's count).
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from repro_torch.core.integral import CENTRE, div_rn, inv_sigma_of, rect_sum
 __all__ = ["integral_image_ref", "window_inv_sigma_ref",
            "dense_stage_sums_ref", "fused_head_ref", "fused_head_batch_ref",
            "packed_stage_sums_ref", "dense_stage_sums_batch_ref",
-           "tile_change_mask_ref", "changed_window_map_ref"]
+           "tile_change_mask_ref", "changed_window_map_ref",
+           "tail_gate_counts_ref"]
 
 _AREA = float(WINDOW * WINDOW)
 
@@ -125,6 +129,23 @@ def packed_stage_sums_ref(rect_xywh, rect_w, wc_threshold, left_val,
                                     right_val[k])
         rows.append(acc)
     return torch.stack(rows)
+
+
+def tail_gate_counts_ref(ss_run: torch.Tensor, thr: torch.Tensor,
+                         valid: torch.Tensor, b_sel: torch.Tensor, n_live,
+                         counts: torch.Tensor) -> torch.Tensor:
+    """Gate ``valid`` by each of the k stages of ``ss_run`` (k, cap) in turn
+    and add the survivors of stage ``j`` to ``counts[j]`` (k, B), image by
+    image, with one ``index_add_`` over every lane; both in place, returns
+    ``valid``.  ``n_live`` is not read: lanes past it are invalid on entry
+    and stay so."""
+    for j in range(ss_run.shape[0]):
+        valid &= ss_run[j] >= thr[j]
+        per_img = torch.zeros(counts.shape[1], dtype=torch.int32,
+                              device=counts.device)
+        per_img.index_add_(0, b_sel, valid.to(torch.int32))
+        counts[j] += per_img
+    return valid
 
 
 def tile_change_mask_ref(prev: torch.Tensor, cur: torch.Tensor,

@@ -34,10 +34,13 @@ torch.set_num_threads(1)
 from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade  # noqa: E402
 from repro_torch.core.training.data import render_scene  # noqa: E402
 from repro_torch.kernels import fused_head, haar_stage, integral_image, ops  # noqa: E402
-from repro_torch.kernels import packed_window, window_variance  # noqa: E402
+from repro_torch.kernels import packed_window, tail_gates, window_variance  # noqa: E402
 from repro_torch.kernels.autotune import (HEAD_TILE_CANDIDATES,  # noqa: E402
                                           LANE_BLOCK_CANDIDATES)
 from repro_torch.kernels.haar_stage import head_block_shape  # noqa: E402
+from torch_gate_cases import (GATE_IMAGES, GATE_LIVE, GATE_ORDERS,  # noqa: E402
+                              GATE_STAGES, gate_case, inline_formula,
+                              run_gates)
 
 SMALL = [3, 4, 5, 6, 8]
 
@@ -95,6 +98,7 @@ def test_detect_batch_on_card_equals_cpu(card, head):
     dense = "fused_head" if head == "fused" else "haar_stage"
     assert counts["integral_image"] > 0 and counts[dense] > 0
     assert counts["packed_window"] > 0
+    assert counts["tail_gates"] == counts["packed_window"]
 
 
 @pytest.mark.cuda
@@ -226,6 +230,136 @@ def test_packed_kernel_dense_prefix_equals_plain(card, s_dense):
     for s in range(s_dense):
         assert torch.equal(tail[s], haar_stage.stage_sums(
             casc, s, ii, inv_g).reshape(-1)), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", GATE_ORDERS)
+@pytest.mark.parametrize("live", GATE_LIVE)
+@pytest.mark.parametrize("n_img", GATE_IMAGES)
+@pytest.mark.parametrize("k", GATE_STAGES)
+def test_tail_gate_kernel_equals_twin_on_card(card, k, n_img, live, order):
+    """Kernel E over 5000 lanes (several blocks) gates the mask and counts
+    each image's survivors bit for bit as its twin and the tail's old
+    per-stage ``index_add_``, on the card and on the CPU, for sorted,
+    shuffled and dead-lane image indices and any live count."""
+    case = gate_case(k, n_img, live, order, cap=5000, device=card)
+    want_valid, want_counts = inline_formula(case, k)
+    ops.reset_launches()
+    out, valid, counts = run_gates(ops.tail_gate_counts, case, k)
+    assert ops.launches()["tail_gates"] == 1
+    assert out is valid
+    _, twin_valid, twin_counts = run_gates(ops.tail_gate_counts_ref, case, k)
+    on_cpu = {n: t.cpu() for n, t in case.items()}
+    _, cpu_valid, cpu_counts = run_gates(ops.tail_gate_counts, on_cpu, k)
+    for v, c in ((twin_valid, twin_counts), (want_valid, want_counts)):
+        assert torch.equal(valid, v) and torch.equal(counts, c)
+    assert torch.equal(valid.cpu(), cpu_valid)
+    assert torch.equal(counts.cpu(), cpu_counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+def test_tail_gate_kernel_at_the_flush_first_segment(card, order):
+    """The flush's first tail segment at 16 x 480x640: 13,802,064 lanes,
+    about 2 M of them live, three stages; kernel E equals its twin."""
+    cap, live, n_img, k = 13_802_064, 2_031_117, 16, 3
+    gen = torch.Generator(device=card).manual_seed(27)
+    b = torch.arange(live, device=card) * n_img // live
+    if order == "shuffled":
+        b = b[torch.randperm(live, generator=gen, device=card)]
+    b_sel = torch.zeros(cap, dtype=torch.int64, device=card)
+    b_sel[:live] = b
+    valid = torch.zeros(cap, dtype=torch.bool, device=card)
+    valid[:live] = True
+    ss = torch.randn((k, cap), generator=gen, device=card) + 0.5
+    ss[:, live:] = 0.0
+    thr = torch.randn(k, generator=gen, device=card)
+    n_live = torch.tensor(live, device=card)
+    runs = []
+    for fn in (tail_gates.gate_counts, ops.tail_gate_counts_ref):
+        v = valid.clone()
+        c = torch.zeros((k, n_img), dtype=torch.int32, device=card)
+        runs.append((fn(ss, thr, v, b_sel, n_live, c), v, c))
+    (_, valid_e, counts_e), (_, valid_r, counts_r) = runs
+    assert torch.equal(valid_e, valid_r) and torch.equal(counts_e, counts_r)
+    assert 0 < int(counts_e[-1].sum()) < int(counts_e[0].sum()) < live
+
+
+@pytest.mark.cuda
+def test_flush_gates_and_counts_on_kernel_e(paper_on_card, monkeypatch):
+    """A flush of 16 x 480x640 scenes on the main path launches kernels C
+    and E once per tail segment (8 each), and its result (mask, image,
+    level, origin, overflow and every stage's per-image counts) and rects
+    equal the same flush with the gates and counts on E's twin."""
+    from repro_torch.core.engine import BatchResult
+    rng = np.random.default_rng(27)
+    imgs = [render_scene(rng, 480, 640, n_faces=3)[0] for _ in range(16)]
+    cfg = EngineConfig(mode="wave", step=1, scale_factor=1.2,
+                       use_pallas=True, pad_multiple=32, tail_backend="pallas")
+    det = Detector(paper_on_card, cfg)
+    hp, wp = det._bucket_hw(480, 640)
+    assert len(det.batch_plan(hp, wp, 16).tail_segments) == 8
+    det.detect_batch(imgs, group=False)          # builds the plan
+
+    def flush():
+        stack, valid_hw = det._pack_stack(imgs, hp, wp)
+        head_fn, tail_fn = det.batch_parts(hp, wp, 16)
+        res = tail_fn(*head_fn(*det._stack_to_device(stack, valid_hw)))
+        return res, det.detect_batch(imgs, group=False)
+
+    ops.reset_launches()
+    res, rects = flush()
+    counts = ops.launches()       # two flushes: tail_fn's and detect_batch's
+    assert counts["tail_gates"] == counts["packed_window"] == 2 * 8
+    monkeypatch.setattr(ops, "tail_gate_counts", ops.tail_gate_counts_ref)
+    ops.reset_launches()
+    res_ref, rects_ref = flush()
+    assert ops.launches()["tail_gates"] == 0
+    for f in BatchResult._fields:
+        assert torch.equal(getattr(res, f), getattr(res_ref, f)), f
+    assert not bool(res.overflow) and int(res.alive_counts[-1].sum()) > 0
+    for a, b in zip(rects, rects_ref):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_full_width_flush_on_kernel_e_equals_cpu(paper_on_card):
+    """Two 480x640 scenes through all 25 stages take the benchmark cell's
+    8-segment tail plan; the card's flush, with kernels C and E launched
+    once per segment, equals the port's CPU flush: its rects and its whole
+    result, ``alive_counts`` included."""
+    from repro_torch.core.engine import BatchResult
+    rng = np.random.default_rng(28)
+    imgs = [render_scene(rng, 480, 640, n_faces=3)[0] for _ in range(2)]
+    cfg = EngineConfig(mode="wave", step=1, scale_factor=1.2,
+                       use_pallas=True, pad_multiple=32, tail_backend="pallas")
+    runs = {}
+    for dev, casc in (("cuda", paper_on_card),
+                      ("cpu", paper_shaped_cascade(0))):
+        det = Detector(casc, cfg, device=dev)
+        hp, wp = det._bucket_hw(480, 640)
+        assert len(det.batch_plan(hp, wp, 2).tail_segments) == 8
+        seen, parts = [], det.batch_parts
+
+        def batch_parts(hp, wp, batch, parts=parts, seen=seen):
+            head_fn, tail_fn = parts(hp, wp, batch)
+            return head_fn, lambda *a: seen.append(tail_fn(*a)) or seen[-1]
+
+        det.batch_parts = batch_parts
+        if dev == "cuda":
+            det.detect_batch(imgs, group=False)      # builds the plan
+            ops.reset_launches()
+        rects = det.detect_batch(imgs, group=False)
+        if dev == "cuda":
+            counts = ops.launches()
+            assert counts["tail_gates"] == counts["packed_window"] == 8
+        runs[dev] = (seen[-1], rects)
+    (res, rects), (res_cpu, rects_cpu) = runs["cuda"], runs["cpu"]
+    for f in BatchResult._fields:
+        assert torch.equal(getattr(res, f).cpu(), getattr(res_cpu, f)), f
+    assert int(res_cpu.alive_counts[-1].sum()) > 0
+    for a, b in zip(rects, rects_cpu):
+        assert np.array_equal(a, b)
 
 
 @pytest.mark.cuda

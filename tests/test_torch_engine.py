@@ -138,8 +138,9 @@ def test_alive_counts_equal_reference(corpus):
 
 
 def test_batch_alive_counts_sum_the_level_counts(corpus):
-    """The packed flush's per-image survivor counts (index_add_ over the
-    shared list) equal the level programs' counts summed over levels."""
+    """The packed flush's per-image survivor counts (kernel E's gates and
+    counts over the shared list's live prefix, its twin on the CPU) equal
+    the level programs' counts summed over levels."""
     d = _port(use_pallas=True, tail_backend="pallas", capacity_fracs=(1.0,))
     head_fn, tail_fn = d.batch_parts(64, 64, 3)
     stack, valid_hw = d._pack_stack(corpus, 64, 64)
@@ -149,6 +150,31 @@ def test_batch_alive_counts_sum_the_level_counts(corpus):
     assert not any(bool(r.overflow.any()) for r, _ in levels)
     per_level = torch.stack([r.alive_counts for r, _ in levels]).sum(0)
     assert torch.equal(res.alive_counts, per_level.T.to(torch.int32))
+
+
+@pytest.mark.parametrize("backend", ["gather", "bulk", "pallas"])
+def test_batch_tail_gates_each_segment_once(corpus, monkeypatch, backend):
+    """``tail_fn`` hands each tail segment's sums, whatever the backend, to
+    ``ops.tail_gate_counts`` once, with that segment's thresholds, count
+    rows and live count; the flush's rects stay the level programs'."""
+    d = _port(use_pallas=True, tail_backend=backend, capacity_fracs=(1.0,))
+    plan = d.batch_plan(64, 64, 3)
+    seen = []
+    real = ops.tail_gate_counts
+
+    def spy(ss_run, thr, valid, b_sel, n_live, counts):
+        seen.append((ss_run.shape[0], thr.shape[0], counts.shape,
+                     int(n_live) <= ss_run.shape[1]))
+        return real(ss_run, thr, valid, b_sel, n_live, counts)
+
+    monkeypatch.setattr(ops, "tail_gate_counts", spy)
+    got = d.detect_batch(corpus, group=False)
+    segs = plan.tail_segments
+    assert segs and seen == [(s.s1 - s.s0, s.s1 - s.s0, (s.s1 - s.s0, 3),
+                              True) for s in segs]
+    for a, b in zip(got, d.detect_batch(corpus, group=False,
+                                        strategy="vmap")):
+        assert np.array_equal(a, b)
 
 
 def test_main_path_launches_no_kernel_on_cpu(corpus):

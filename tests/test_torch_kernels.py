@@ -29,7 +29,10 @@ from repro_torch.core import cascade as tcascade  # noqa: E402
 from repro_torch.core import integral as tintegral  # noqa: E402
 from repro_torch.kernels import autotune, native, ops, packed_tail  # noqa: E402
 from repro_torch.kernels import fused_head, haar_stage, integral_image  # noqa: E402
-from repro_torch.kernels import packed_window, window_variance  # noqa: E402
+from repro_torch.kernels import packed_window, tail_gates, window_variance  # noqa: E402
+from torch_gate_cases import (GATE_IMAGES, GATE_LIVE, GATE_ORDERS,  # noqa: E402
+                              GATE_STAGES, S0, gate_case, inline_formula,
+                              run_gates)
 
 SMALL = [3, 4, 5, 6, 8]
 RCASC = rcascade.paper_shaped_cascade(0, stage_sizes=SMALL)
@@ -342,6 +345,40 @@ def test_unknown_backend_raises():
     with pytest.raises(ValueError, match="backend"):
         # repro: ignore[TAIL_BACKEND] deliberately invalid backend: this test pins the rejection
         packed_tail.stage_sums(TCASC, 0, 1, torch.zeros(1, 4), *lanes, torch.zeros(1), backend="simd")  # repro_torch: ignore[TAIL_BACKEND] pins the rejection
+
+
+# ------------------------------------------------ tail gates (kernel E)
+@pytest.mark.parametrize("order", GATE_ORDERS)
+@pytest.mark.parametrize("live", GATE_LIVE)
+@pytest.mark.parametrize("n_img", GATE_IMAGES)
+@pytest.mark.parametrize("k", GATE_STAGES)
+def test_tail_gate_counts_equal_twin_and_inline_formula(k, n_img, live,
+                                                        order):
+    """The wrapper and its twin gate the mask and add each image's
+    survivors per stage to the segment's rows exactly as the tail's old
+    per-stage ``index_add_`` did, in place, for any order of the image
+    indices and any live count; the other rows stay as they were."""
+    case = gate_case(k, n_img, live, order)
+    want_valid, want_counts = inline_formula(case, k)
+    for fn in (ops.tail_gate_counts, ops.tail_gate_counts_ref):
+        out, valid, counts = run_gates(fn, case, k)
+        assert out is valid
+        assert torch.equal(valid, want_valid)
+        assert torch.equal(counts, want_counts)
+    m = min(int(case["n_live"]), case["ss"].shape[1])
+    assert not want_valid[m:].any()
+    rest = [s for s in range(counts.shape[0]) if not S0 <= s < S0 + k]
+    assert torch.equal(counts[rest], case["counts"][rest])
+
+
+def test_tail_gate_counts_refuses_other_devices_and_launches_nothing():
+    case = gate_case(3, 3, "mid", "sorted")
+    ops.reset_launches()
+    run_gates(tail_gates.gate_counts, case, 3)
+    assert ops.launches()["tail_gates"] == 0
+    meta = {n: t.to("meta") for n, t in case.items()}
+    with pytest.raises(ValueError, match="CUDA"):
+        run_gates(tail_gates.gate_counts, meta, 3)
 
 
 # -------------------------------------------------------- wrapper rules
