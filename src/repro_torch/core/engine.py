@@ -22,8 +22,10 @@ heads and the packed tail on the port's CUDA kernels:
   counts each image's survivors, over the live prefix only.
 
 ``detect_batch`` (packed strategy) shares one compaction across every
-image and pyramid level of a flush and reads the device once, for the
-overflow flag, before decoding.  ``detect`` runs the same level program
+image and pyramid level of a flush and waits for the device once, for the
+overflow flag and the survivor counts (the head's and each stage's); from
+those it copies back only the live prefix of the final survivor list, in one packed copy, and
+decodes it.  ``detect`` runs the same level program
 as ``detect_batch(strategy="vmap")`` with a batch of one, so both are
 equal to ``detect_batch`` image by image.  The single-image tail, which the
 reference evaluates with the gather oracle, goes through the packed-tail
@@ -559,27 +561,48 @@ class Detector:
         del flush_in        # each half's inputs go once it has run: the
         with span("tail"):  # device's peak holds one stack at a time
             res = tail_fn(*parts)
+            head_live = parts[0].sum().to(torch.int32).reshape(1)
         del parts
-        with span("sync"):              # the flush's one wait for the device
-            overflow = self._to_host(res.overflow)
-        if overflow:
+        with span("sync"):   # the flush's one wait: the flag and the counts
+            flag_counts = self._to_host(torch.cat([
+                res.overflow.reshape(1).to(torch.int32), head_live,
+                res.alive_counts.reshape(-1)]))
+        if flag_counts[0]:
             raise RuntimeError(
                 "batched-engine shared capacity overflow; raise "
                 "batch_capacity_fracs / capacity_fracs (see "
                 "Detector.calibrated)")
         with span("copy_back"):
-            # one whole list on the host at a time: its copy is masked to
-            # the live lanes before the next one comes back
-            val = self._to_host(res.valid)
-            b, lvl, ys, xs = (self._to_host(t)[val] for t in (
-                res.img, res.lvl, res.ys, res.xs))
+            # the final list's live lanes are its first `live`; every dead
+            # lane of the list holds -1 as its image
+            live = self._final_live(plan, flag_counts[2:].reshape(-1, n),
+                                    int(flag_counts[1]))
+            b, lvl, ys, xs = self._to_host(torch.stack(
+                [t[:live] for t in (res.img, res.lvl, res.ys, res.xs)]
+            ).to(torch.int32))
+            keep = b >= 0
+            b, lvl, ys, xs = b[keep], lvl[keep], ys[keep], xs[keep]
         with span("decode"):
             scales = np.asarray([lp.scale for lp in plan.levels])
-            out = []
-            for i in range(n):
-                m = b == i
-                out.append(self._decode_rects(ys[m], xs[m], scales[lvl[m]]))
-        return out
+            # compactions keep ascending slot order: each image's rects
+            # are one run of the list
+            cuts = np.searchsorted(b, np.arange(n + 1))
+            return [self._decode_rects(ys[a:z], xs[a:z], scales[lvl[a:z]])
+                    for a, z in zip(cuts[:-1], cuts[1:])]
+
+    @staticmethod
+    def _final_live(plan, counts: np.ndarray, head_live: int) -> int:
+        """Length of the live prefix of a flush's final survivor list.
+
+        The plan's last compaction packs the survivors entering stage
+        ``s_last`` to the list's front, in ascending slot order, and the
+        stages after it only clear lanes inside that prefix.  ``counts``
+        is the flush's (n_stages, B) per-image survivors; before stage 0
+        the survivors are the head's live windows, ``head_live``.
+        """
+        segs = plan.tail_segments
+        s_last = segs[-1].s0 if segs else plan.dense_prefix
+        return int(counts[s_last - 1].sum()) if s_last else head_live
 
     def _detect_bucket_vmap(self, imgs: list, idxs: list) -> list:
         levels = self.detect_batch_raw(imgs)

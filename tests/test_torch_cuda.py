@@ -1,7 +1,9 @@
 """The port's CUDA kernels on a card (``cuda`` marker): each kernel equal
 bit for bit to its plain version on the same inputs (the dense heads A and
 B in every head tile, on ragged grids), a small ``detect_batch`` on the
-card equal to the port's CPU run, through every kernel, and a small
+card equal to the port's CPU run, through every kernel, a flush of the
+benchmark cell's shape that copies back only the live prefix of its final
+survivor list and gives the rects of the five whole lists, and a small
 ``calibrated`` run on the card whose rects and capacities equal the CPU
 run's; kernel C's dense-order stage prefix, a small stream on the
 card equal to the port's CPU run, a governed two-pod service flush on
@@ -25,6 +27,8 @@ only torch, numpy and the port, so it runs where jax is not installed:
 Without a card every test here skips (the kernels have no CPU mode).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +36,7 @@ import torch
 torch.set_num_threads(1)
 
 from repro_torch.core import Detector, EngineConfig, paper_shaped_cascade  # noqa: E402
+from repro_torch.core.cascade import FIELDS, make_cascade  # noqa: E402
 from repro_torch.core.training.data import render_scene  # noqa: E402
 from repro_torch.kernels import fused_head, haar_stage, integral_image, ops  # noqa: E402
 from repro_torch.kernels import packed_window, tail_gates, window_variance  # noqa: E402
@@ -42,6 +47,7 @@ from torch_gate_cases import (GATE_IMAGES, GATE_LIVE, GATE_ORDERS,  # noqa: E402
                               GATE_STAGES, gate_case, inline_formula,
                               run_gates)
 
+REPO = Path(__file__).resolve().parents[1]
 SMALL = [3, 4, 5, 6, 8]
 
 
@@ -360,6 +366,47 @@ def test_full_width_flush_on_kernel_e_equals_cpu(paper_on_card):
     assert int(res_cpu.alive_counts[-1].sum()) > 0
     for a, b in zip(rects, rects_cpu):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flush_copies_back_only_the_live_prefix(card):
+    """A flush of 16 x 480x640 scenes through a calibrated 25-stage,
+    2913-stump cascade copies back under 1 MB: the flag, the counts and
+    the live prefix of its final survivor list; its rects equal those of
+    copying back the five whole final lists and masking them.  (The
+    uncalibrated paper-shaped cascade leaves some 124,000 lanes entering
+    its last stage here: about 2 MB.)  The fixture is the paper-shaped
+    cascade with each stump's polarity and each stage's threshold set to
+    ``opencv_traincascade``'s default per-stage rates (hit 0.995, false
+    alarm 0.5)."""
+    with np.load(REPO / "tests" / "fixtures"
+                 / "calibrated-25x2913.npz") as z:
+        casc = make_cascade(*(z[f] for f in FIELDS), device=card)
+    rng = np.random.default_rng(30)
+    imgs = [render_scene(rng, 480, 640, n_faces=3)[0] for _ in range(16)]
+    cfg = EngineConfig(mode="wave", step=1, scale_factor=1.2,
+                       use_pallas=True, pad_multiple=32, tail_backend="pallas")
+    det = Detector(casc, cfg)
+    hp, wp = det._bucket_hw(480, 640)
+    plan = det.batch_plan(hp, wp, 16)
+    det.detect_batch(imgs, group=False)          # builds the plan
+    d2h = det.d2h_bytes
+    rects = det.detect_batch(imgs, group=False)
+    moved = det.d2h_bytes - d2h
+    stack, valid_hw = det._pack_stack(imgs, hp, wp)
+    head_fn, tail_fn = det.batch_parts(hp, wp, 16)
+    res = tail_fn(*head_fn(*det._stack_to_device(stack, valid_hw)))
+    val = res.valid.cpu().numpy()
+    b, lvl, ys, xs = (t.cpu().numpy()[val] for t in (res.img, res.lvl,
+                                                      res.ys, res.xs))
+    live = int(res.alive_counts[plan.tail_segments[-1].s0 - 1].sum())
+    assert moved == 4 * (2 + res.alive_counts.numel()) + 16 * live < 1e6
+    assert 0 < len(b) <= live < res.valid.numel()
+    scales = np.asarray([lp.scale for lp in plan.levels])
+    for i in range(16):
+        m = b == i
+        want = det._decode_rects(ys[m], xs[m], scales[lvl[m]])
+        assert np.array_equal(rects[i], want), i
 
 
 @pytest.mark.cuda

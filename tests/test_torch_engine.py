@@ -177,6 +177,62 @@ def test_batch_tail_gates_each_segment_once(corpus, monkeypatch, backend):
         assert np.array_equal(a, b)
 
 
+# the packed flush's copy back: its cases, each a config and a batch (faces
+# from the corpus, "blank" a zero image, "wide" a 70x90 scene), and which
+# images have no rects
+_BLANK = np.zeros((64, 64), np.float32)
+COPY_BACK_CASES = {
+    "one_image_without_rects": (dict(compact_every=1), "f0 blank f1", {1}),
+    "no_image_with_rects": (dict(compact_every=1), "blank blank", {0, 1}),
+    "dense_only": (dict(mode="dense"), "f0 f1 f2", set()),
+    "tail_from_stage_0": (dict(dense_segments=(), compact_every=5),
+                          "f0 blank f2", {1}),
+    "two_buckets": (dict(pad_multiple=32), "f0 wide f1 wide", set()),
+}
+
+
+@pytest.mark.parametrize("case", COPY_BACK_CASES)
+def test_packed_copy_back_equals_vmap_and_detect(corpus, case):
+    """The packed flush copies back only the live prefix of its final
+    survivor list, whose length the host takes from the plan and the
+    flush's counts: past it every lane is dead, and the rects equal the
+    reference's, the vmap strategy's and ``detect``'s, image by image."""
+    kw, names, empty = COPY_BACK_CASES[case]
+    wide = render_scene(np.random.default_rng(30), 70, 90, n_faces=1)[0]
+    pick = {"f0": corpus[0], "f1": corpus[1], "f2": corpus[2],
+            "blank": _BLANK, "wide": wide}
+    imgs = [pick[k] for k in names.split()]
+    d = _port(use_pallas=True, tail_backend="pallas", **kw)
+    ref = RDetector(RCASC, RConfig(**{**KW, **kw}))
+    packed = d.detect_batch(imgs, group=False)
+    vmap = d.detect_batch(imgs, group=False, strategy="vmap")
+    for i, im in enumerate(imgs):
+        single = d.detect(im, group=False)
+        assert np.array_equal(packed[i], ref.detect(im, group=False)), i
+        assert np.array_equal(packed[i], single), i
+        assert np.array_equal(vmap[i], single), i
+        assert (len(single) == 0) == (i in empty), i
+    buckets: dict = {}
+    for im in imgs:
+        buckets.setdefault(d._bucket_hw(*im.shape), []).append(im)
+    assert len(buckets) == (2 if case == "two_buckets" else 1)
+    for (hp, wp), group in buckets.items():
+        plan = d.batch_plan(hp, wp, len(group))
+        stack, valid_hw = d._pack_stack(group, hp, wp)
+        head_fn, tail_fn = d.batch_parts(hp, wp, len(group))
+        parts = head_fn(*d._stack_to_device(stack, valid_hw))
+        res = tail_fn(*parts)
+        head_live = int(parts[0].sum())
+        live = d._final_live(plan, res.alive_counts.numpy(), head_live)
+        if len(plan.tail_segments) <= 1:   # one compaction, of alive_flat
+            assert live == head_live
+        assert (live == 0) == (case == "no_image_with_rects")
+        assert 0 <= live <= res.valid.numel()
+        assert not res.valid[live:].any()
+        assert bool((res.img[live:] == -1).all())
+        assert int(res.valid[:live].sum()) == int(res.alive_counts[-1].sum())
+
+
 def test_main_path_launches_no_kernel_on_cpu(corpus):
     ops.reset_launches()
     _port(use_pallas=True, tail_backend="pallas").detect_batch(corpus)

@@ -111,12 +111,20 @@ def test_flush_counts_the_bytes_its_shapes_give(images):
     h2d, d2h = det.h2d_bytes, det.d2h_bytes
     assert h2d > 0 and d2h > 0                        # the build's tables
     det.detect_batch(images, group=False)
+    moved = det.d2h_bytes - d2h
     stack = 2 * 64 * 64 * 4                           # float32 (B, hp, wp)
     valid_hw = 2 * 2 * 8                              # int64 (B, 2)
     assert det.h2d_bytes - h2d == stack + valid_hw
-    # bool valid + int64 img, lvl, ys, xs over the final lanes; the
-    # overflow flag
-    assert det.d2h_bytes - d2h == 33 * plan.capacities[-1] + 1
+    # the overflow flag, the head's live windows and the (n_stages, B)
+    # counts, as int32; then int32 image, level, y and x of each lane of
+    # the final list's live prefix: the survivors entering the last tail
+    # segment
+    head_fn, tail_fn = det.batch_parts(64, 64, 2)
+    res = tail_fn(*head_fn(*det._stack_to_device(
+        *det._pack_stack(images, 64, 64))))
+    live = int(res.alive_counts[plan.tail_segments[-1].s0 - 1].sum())
+    assert 0 < live < plan.capacities[-1]
+    assert moved == 4 * (2 + res.alive_counts.numel()) + 16 * live
 
 
 def test_repeated_flush_builds_no_program(images):
